@@ -7,19 +7,24 @@
    and power limit as nvidia-smi reports them.
 2. Builds every hand-written kernel from the sources in the checkout
    (one nvcc per source, all started together) and prints the seconds.
-3. Kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's shapes plus ragged ones, with the stated bar, and
-   timed with CUDA events beside its bound and the PyTorch library call
-   that computes the same function.
-4. Main-path phase: one MC-dropout vote-entropy selection query of the
-   canonical experiment at full width (DeepLab-v3+/MobileNetV2, os16,
-   19 classes, crop 513, batch 5, 20 MC steps) through the selector a user
-   calls, over a synthetic Cityscapes-sized DirectoryStore; the kernels'
-   launch counts are read around that query. Then one batch is re-scored
-   with the fused kernel off under the same dropout masks and the entropy
-   maps are compared, and the layers are timed apart: the host geometry
-   of one batch, the device-resident MC sweep of one batch, and a
-   torch.profiler breakdown of that sweep by device kernel.
+3. Kernel phase: each kernel (B1 upsample4_argmax, B2
+   tconv2x_argmax_parity_major) against its plain PyTorch version on the
+   card at its main path's shapes plus ragged ones, with the stated bar,
+   and timed with CUDA events beside its bound and the PyTorch library
+   call that computes the same function.
+4. Main-path phases, over one synthetic Cityscapes-sized DirectoryStore
+   of 20 records written once: one MC-dropout vote-entropy selection
+   query at full width through the selector a user calls, for
+   - DeepLab-v3+/MobileNetV2 (the canonical experiment: os16, 19 classes,
+     crop 513, batch 5, 20 MC steps; votes through B1), and
+   - ENet (the JAX package's factory config: 19 classes, crop 512,
+     batch 8, 20 MC steps; votes through B2).
+   Every launch count is set to 0 just before each query and read just
+   after it. Then one batch is re-scored with the fused kernel off under
+   the same dropout masks and the entropy maps are compared, and the
+   layers are timed apart: the host geometry of one batch, the
+   device-resident MC sweep of one batch, and a torch.profiler breakdown
+   of that sweep by device kernel.
 5. Prints one {"kernels": [...]} line, then, as the last line,
    {"ok": true, "device": {...}}. Any failed check raises: exit code 1.
 
@@ -47,9 +52,17 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 NUM_CLASSES = 19
-CROP = 513
-BATCH = 5
 POOL = 20
+
+# main paths: (crop, batch, kernel the fused MC sweep votes through,
+# build_model arguments)
+PATHS = {
+    "deeplab": dict(crop=513, batch=5, kernel="upsample4_argmax",
+                    build=dict(backbone="mobilenet", output_stride=16,
+                               mc_dropout=True)),
+    "enet": dict(crop=512, batch=8, kernel="tconv2x_argmax_parity_major",
+                 build={}),
+}
 
 
 def card_line() -> str:
@@ -80,6 +93,33 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(f"chip_smoke check failed: {what}")
+
+
+def kernel_wrappers():
+    """Kernel name -> its wrapper, whose ``launches`` counts real launches."""
+    from deep_active_semantic_segmentation_torch.ops import tconv_votes as tv
+    from deep_active_semantic_segmentation_torch.ops import upsample_argmax as ua
+
+    return {"upsample4_argmax": ua.upsample4_argmax,
+            "tconv2x_argmax_parity_major": tv.tconv2x_argmax_parity_major}
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def bound(bytes_moved: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
+    operations over the f32 rate outside the tensor cores."""
+    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / F32_FLOPS * 1e3
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations")
 
 
 # ---------------------------------------------------------------- kernels
@@ -121,7 +161,7 @@ def upsample_kernel_phase(torch, gen):
               f"upsample4_argmax vs plain at {shape} {dtype}")
 
     # timing at the main path's shape and dtype (f32: MC dtype 'auto')
-    B, C, h, w = 5, NUM_CLASSES, 129, 129
+    B, C, h, w = PATHS["deeplab"]["batch"], NUM_CLASSES, 129, 129
     H, W = 4 * (h - 1) + 1, 4 * (w - 1) + 1
     x = torch.randn((B, C, h, w), device="cuda", generator=gen)
     ms = cuda_ms(lambda: ua.upsample4_argmax(x), 200)
@@ -130,8 +170,7 @@ def upsample_kernel_phase(torch, gen):
         x, size=(H, W), mode="bilinear", align_corners=True).argmax(1), 50)
     bytes_moved = x.numel() * 4 + B * H * W * 4
     flops = B * H * W * C * 9  # three lerps of 2 mul + 1 add per class
-    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / F32_FLOPS * 1e3
+    bound_ms, bound_by = bound(bytes_moved, flops)
     return {
         "name": "upsample4_argmax", "route": "cuda",
         "source": "deep_active_semantic_segmentation_torch/csrc/upsample_argmax.cu",
@@ -139,10 +178,88 @@ def upsample_kernel_phase(torch, gen):
         "launches": None,  # filled from the main-path run
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "timed_shape": [B, C, h, w], "timed_dtype": "float32",
+        "checks": checks,
+    }
+
+
+def tconv_kernel_phase(torch, gen):
+    """B2 against its plain version: >= 99.5% of votes agree and every vote
+    agrees where the parity's top-2 logit gap exceeds 1e-3 (the B1 bar);
+    bit-for-bit equality is the design target and is printed.
+    max_abs_err: the largest drop in the f64 logit from taking the
+    kernel's vote instead of the plain one (0 where they agree)."""
+    import torch.nn.functional as F
+
+    from deep_active_semantic_segmentation_torch.ops import tconv_votes as tv
+
+    def tconv(x, weight):
+        return F.conv_transpose2d(x, weight, stride=2, padding=1,
+                                  output_padding=1)
+
+    checks = []
+    for shape, dtype in (((8, 16, 256, 256), torch.float32),
+                         ((8, 16, 256, 256), torch.bfloat16),
+                         ((3, 16, 33, 47), torch.float32),
+                         ((1, 16, 1, 5), torch.float32)):
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        weight = (torch.randn((shape[1], NUM_CLASSES, 3, 3), device="cuda",
+                              generator=gen) / 4.0).to(dtype)
+        votes = tv.tconv2x_argmax_parity_major(x, weight)
+        plain = tv.tconv2x_argmax_parity_major_plain(x, weight)
+        torch.cuda.synchronize()
+        full = tconv(x.double(), weight.double())           # (B, C, 2h, 2w)
+        top2 = full.topk(2, dim=1).values
+        confident = (top2[:, 0] - top2[:, 1]) > 1e-3
+        kv = tv.interleave_parity_major(votes)
+        pv = tv.interleave_parity_major(plain)
+        same = kv == pv
+        err = (full.gather(1, pv.long()[:, None])
+               - full.gather(1, kv.long()[:, None])).abs().max().item()
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
+               "agreement": same.float().mean().item(),
+               "bit_exact": bool(torch.equal(votes, plain)),
+               "confident_exact": bool(same[confident].all().item()),
+               "max_abs_err": err}
+        checks.append(row)
+        print("tconv2x_argmax_parity_major check", json.dumps(row), flush=True)
+        check(row["agreement"] >= 0.995 and row["confident_exact"],
+              f"tconv2x_argmax_parity_major vs plain at {shape} {dtype}")
+        del full, top2
+
+    # timing at the ENet path's shape and dtype (f32: MC dtype 'auto')
+    B, Cin, h, w = PATHS["enet"]["batch"], 16, 256, 256
+    C = NUM_CLASSES
+    x = torch.randn((B, Cin, h, w), device="cuda", generator=gen)
+    weight = torch.randn((Cin, C, 3, 3), device="cuda", generator=gen) / 4.0
+    ms = cuda_ms(lambda: tv.tconv2x_argmax_parity_major(x, weight), 200)
+    plain_ms = cuda_ms(lambda: tv.tconv2x_argmax_parity_major_plain(x, weight), 10)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True     # PyTorch's default
+        library_ms = cuda_ms(lambda: tconv(x, weight).argmax(1), 50)
+        torch.backends.cudnn.allow_tf32 = False
+        library_ms_fp32 = cuda_ms(lambda: tconv(x, weight).argmax(1), 50)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    bytes_moved = x.numel() * 4 + B * 4 * h * w * 4
+    # non-zero taps per input pixel over the four parities: 1 + 2 + 2 + 4
+    flops = B * h * w * 9 * Cin * C * 2
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    return {
+        "name": "tconv2x_argmax_parity_major", "route": "cuda",
+        "source": "deep_active_semantic_segmentation_torch/csrc/tconv_votes.cu",
+        "replaces": "deep_active_semantic_segmentation_tpu/ops/pallas/tconv_votes_fused.py:125",
+        "launches": None,  # filled from the main-path run
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library": "F.conv_transpose2d(s2, p1, op1).argmax(1), cuDNN TF32 on",
+        "library_ms_tf32_off": library_ms_fp32,
+        "timed_shape": [B, Cin, h, w], "timed_cout": C, "timed_dtype": "float32",
         "checks": checks,
     }
 
@@ -170,11 +287,13 @@ def write_store(root: Path, seed: int):
     return DirectoryStore(str(root)), keys
 
 
-def main_path_phase(torch, seed: int):
+def main_path_phase(torch, seed: int, arch: str, store, paths):
+    """One selection query of ``arch`` (PATHS) through the entry point a
+    user calls, with every launch count set to 0 just before it and read
+    just after; then the gates and the layer timings."""
     from deep_active_semantic_segmentation_torch import constants
     from deep_active_semantic_segmentation_torch.data.loader import PathsLoader
     from deep_active_semantic_segmentation_torch.models.factory import build_model
-    from deep_active_semantic_segmentation_torch.ops import upsample_argmax as ua
     from deep_active_semantic_segmentation_torch.ops.entropy import mean_over_pixels
     from deep_active_semantic_segmentation_torch.selection import (
         ModelBundle, get_active_selection_class)
@@ -182,108 +301,106 @@ def main_path_phase(torch, seed: int):
     from deep_active_semantic_segmentation_torch.selection.base import (
         collect_scores, rank_descending)
 
-    tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
-    try:
-        t0 = time.perf_counter()
-        store, paths = write_store(tmp, seed)
-        store_s = time.perf_counter() - t0
+    cfg = PATHS[arch]
+    crop, batch_size, kernel = cfg["crop"], cfg["batch"], cfg["kernel"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = build_model(arch, NUM_CLASSES, device="cuda", generator=gen,
+                        **cfg["build"])
+    bundle = ModelBundle(model, torch.device("cuda"))
+    sel = get_active_selection_class("variance", NUM_CLASSES, store, crop,
+                                     batch_size, device="cuda")
+    check(sel.mc_dtype() == "float32", "MC dtype 'auto' is float32")
 
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        model = build_model("deeplab", NUM_CLASSES, backbone="mobilenet",
-                            output_stride=16, mc_dropout=True, device="cuda",
-                            generator=gen)
-        bundle = ModelBundle(model, torch.device("cuda"))
-        sel = get_active_selection_class("variance", NUM_CLASSES, store, CROP,
-                                         BATCH, device="cuda")
-        check(sel.mc_dtype() == "float32", "MC dtype 'auto' is float32")
+    # warm-up query (cuDNN setup, kernel load) on one batch
+    sel.get_vote_entropy_for_images(bundle, paths[:batch_size], 1, seed=1)
+    torch.cuda.synchronize()
 
-        # warm-up query (cuDNN setup, kernel load) on one batch
-        sel.get_vote_entropy_for_images(bundle, paths[:BATCH], 1, seed=1)
-        torch.cuda.synchronize()
+    n_batches = -(-len(paths) // batch_size)
+    reset_counts()
+    t0 = time.perf_counter()
+    top = sel.get_vote_entropy_for_images(bundle, paths, 5, seed=0)
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts[kernel]
+    print(f"{arch} path: {len(paths)} images in {query_s:.3f} s "
+          f"({len(paths) / query_s:.2f} images/s, {n_batches} batches of "
+          f"{batch_size} at crop {crop}, launches {json.dumps(counts)}) "
+          f"on {card_line()}", flush=True)
+    check(launches == constants.MC_STEPS * n_batches,
+          f"{kernel} launched {launches} times, expected "
+          f"{constants.MC_STEPS * n_batches}")
+    check(all(n == 0 for name, n in counts.items() if name != kernel),
+          f"no other kernel launched on the {arch} path: {counts}")
+    check(len(top) == 5 and len(set(top)) == 5, "top-5 has 5 distinct paths")
 
-        n_batches = -(-len(paths) // BATCH)
-        ua.upsample4_argmax.launches = 0
-        t0 = time.perf_counter()
-        top = sel.get_vote_entropy_for_images(bundle, paths, 5, seed=0)
-        torch.cuda.synchronize()
-        query_s = time.perf_counter() - t0
-        launches = ua.upsample4_argmax.launches
-        print(f"main path: {len(paths)} images in {query_s:.3f} s "
-              f"({len(paths) / query_s:.2f} images/s, {n_batches} batches, "
-              f"upsample4_argmax launches {launches}) on {card_line()}",
-              flush=True)
-        check(launches == constants.MC_STEPS * n_batches,
-              f"upsample4_argmax launched {launches} times, expected "
-              f"{constants.MC_STEPS * n_batches}")
-        check(len(top) == 5 and len(set(top)) == 5, "top-5 has 5 distinct paths")
+    # the same query's scores (same seed -> same masks): finite, and
+    # they rank as the entry point ranked
+    scorer = sel._entropy_scorer(bundle, 0)
+    scores = collect_scores(
+        sel._paths_loader(paths, include_labels=True,
+                          labels_as_mask=NUM_CLASSES),
+        lambda b: mean_over_pixels(scorer(b)))
+    check(len(scores) == len(paths) and bool(np.isfinite(scores).all()),
+          "scores are finite, one per image")
+    check(rank_descending(scores, list(paths), 5) == top,
+          "re-scored ranking equals the entry point's")
 
-        # the same query's scores (same seed -> same masks): finite, and
-        # they rank as the entry point ranked
-        scorer = sel._entropy_scorer(bundle, 0)
-        scores = collect_scores(
-            sel._paths_loader(paths, include_labels=True,
-                              labels_as_mask=NUM_CLASSES),
-            lambda b: mean_over_pixels(scorer(b)))
-        check(len(scores) == len(paths) and bool(np.isfinite(scores).all()),
-              "scores are finite, one per image")
-        check(rank_descending(scores, list(paths), 5) == top,
-              "re-scored ranking equals the entry point's")
+    # fused vs unfused on batch 0 under the same dropout masks
+    batch = next(iter(sel._paths_loader(paths[:batch_size], include_labels=True,
+                                        labels_as_mask=NUM_CLASSES)))
+    maps = {}
+    for fused in (True, False):
+        maps[fused] = kernels.mc_vote_entropy_maps(
+            model, batch["image"], batch["label"],
+            kernels.mc_generator(0, 0, "cuda"), NUM_CLASSES,
+            constants.MC_STEPS, "dropout", fused_upsample=fused,
+            labels_packed=True)
+    a, b = maps[False], maps[True]
+    check(tuple(b.shape) == (batch_size, crop, crop),
+          f"entropy map shape {tuple(b.shape)}")
+    check(bool(torch.isfinite(b).all()), "entropy maps finite")
+    mean_abs = (a - b).abs().mean().item()
+    equal = (a == b).float().mean().item()
+    print(f"{arch} fused vs unfused entropy maps: mean |d| {mean_abs:.6f}, "
+          f"equal {equal:.6f}", flush=True)
+    check(mean_abs < 0.02 and equal >= 0.98, "fused and unfused agree")
 
-        # fused vs unfused on batch 0 under the same dropout masks
-        batch = next(iter(sel._paths_loader(paths[:BATCH], include_labels=True,
-                                            labels_as_mask=NUM_CLASSES)))
-        maps = {}
-        for fused in (True, False):
-            maps[fused] = kernels.mc_vote_entropy_maps(
-                model, batch["image"], batch["label"],
-                kernels.mc_generator(0, 0, "cuda"), NUM_CLASSES,
-                constants.MC_STEPS, "dropout", fused_upsample=fused,
-                labels_packed=True)
-        a, b = maps[False], maps[True]
-        check(tuple(b.shape) == (BATCH, CROP, CROP), f"entropy map shape {tuple(b.shape)}")
-        check(bool(torch.isfinite(b).all()), "entropy maps finite")
-        mean_abs = (a - b).abs().mean().item()
-        equal = (a == b).float().mean().item()
-        print(f"fused vs unfused entropy maps: mean |d| {mean_abs:.6f}, "
-              f"equal {equal:.6f}", flush=True)
-        check(mean_abs < 0.02 and equal >= 0.98, "fused and unfused agree")
+    # device-resident MC sweep of one batch (no host work)
+    def sweep():
+        kernels.mc_vote_entropy_maps(
+            model, batch["image"], batch["label"],
+            kernels.mc_generator(0, 0, "cuda"), NUM_CLASSES,
+            constants.MC_STEPS, "dropout", fused_upsample=True,
+            labels_packed=True)
+    batch_ms = cuda_ms(sweep, 5, warmup=1)
+    print(f"{arch} MC sweep of one batch (device-resident): {batch_ms:.3f} ms "
+          f"({batch_size / batch_ms * 1e3:.2f} images/s)", flush=True)
 
-        # device-resident MC sweep of one batch (no host work)
-        def sweep():
-            kernels.mc_vote_entropy_maps(
-                model, batch["image"], batch["label"],
-                kernels.mc_generator(0, 0, "cuda"), NUM_CLASSES,
-                constants.MC_STEPS, "dropout", fused_upsample=True,
-                labels_packed=True)
-        batch_ms = cuda_ms(sweep, 5, warmup=1)
-        print(f"MC sweep of one batch (device-resident): {batch_ms:.3f} ms "
-              f"({BATCH / batch_ms * 1e3:.2f} images/s)", flush=True)
+    # host layer alone: store reads + FixScaleCrop + wire packing of
+    # one batch on one thread (the query runs 3 such workers)
+    loader = PathsLoader(store, paths[:batch_size], crop, batch_size,
+                         include_labels=True, labels_as_mask=NUM_CLASSES)
+    t0 = time.perf_counter()
+    loader.build_batch(paths[:batch_size])
+    host_batch_s = time.perf_counter() - t0
+    print(f"{arch} host geometry of one batch (one thread): {host_batch_s:.3f} s "
+          f"({batch_size / host_batch_s:.2f} images/s)", flush=True)
 
-        # host layer alone: store reads + FixScaleCrop + wire packing of
-        # one batch on one thread (the query runs 3 such workers)
-        loader = PathsLoader(store, paths[:BATCH], CROP, BATCH,
-                             include_labels=True, labels_as_mask=NUM_CLASSES)
-        t0 = time.perf_counter()
-        loader.build_batch(paths[:BATCH])
-        host_batch_s = time.perf_counter() - t0
-        print(f"host geometry of one batch (one thread): {host_batch_s:.3f} s "
-              f"({BATCH / host_batch_s:.2f} images/s)", flush=True)
-
-        return {"pool": len(paths), "batches": n_batches,
-                "launches": launches, "store_write_s": store_s,
-                "query_s": query_s, "images_per_s": len(paths) / query_s,
-                "host_batch_s": host_batch_s,
-                "host_images_per_s_one_thread": BATCH / host_batch_s,
-                "mc_batch_ms": batch_ms,
-                "mc_images_per_s": BATCH / batch_ms * 1e3,
-                "fused_vs_unfused": {"mean_abs": mean_abs, "equal": equal},
-                "profile": profile_sweep(torch, sweep),
-                "top5": [p.decode() for p in top]}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    return {"arch": arch, "crop": crop, "batch": batch_size,
+            "pool": len(paths), "batches": n_batches,
+            "launches": launches, "counts": counts,
+            "query_s": query_s, "images_per_s": len(paths) / query_s,
+            "host_batch_s": host_batch_s,
+            "host_images_per_s_one_thread": batch_size / host_batch_s,
+            "mc_batch_ms": batch_ms,
+            "mc_images_per_s": batch_size / batch_ms * 1e3,
+            "fused_vs_unfused": {"mean_abs": mean_abs, "equal": equal},
+            "profile": profile_sweep(torch, sweep, arch),
+            "top5": [p.decode() for p in top]}
 
 
-def profile_sweep(torch, sweep):
+def profile_sweep(torch, sweep, arch: str):
     """Device time by kernel name over one MC sweep (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -304,8 +421,8 @@ def profile_sweep(torch, sweep):
     device_ms = sum(r[0] for r in rows) / 1e3
     top = [{"kernel": k[:120], "device_ms": us / 1e3, "calls": n}
            for us, k, n in rows[:15]]
-    print("profile of one MC sweep: wall %.3f ms, device kernels %.3f ms" % (
-        wall_ms, device_ms), flush=True)
+    print("%s profile of one MC sweep: wall %.3f ms, device kernels %.3f ms" % (
+        arch, wall_ms, device_ms), flush=True)
     for r in top:
         print("  %9.3f ms %5d  %s" % (r["device_ms"], r["calls"], r["kernel"]))
     return {"wall_ms": wall_ms, "device_kernel_ms": device_ms, "top": top}
@@ -339,18 +456,30 @@ def main(argv=None) -> int:
         print(f"nvcc {name}:\n{text.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    b1 = upsample_kernel_phase(torch, gen)
-    main_result = main_path_phase(torch, args.seed)
-    b1["launches"] = main_result["launches"]
-    check(b1["launches"] > 0, "upsample4_argmax ran on the main path")
+    rows = [upsample_kernel_phase(torch, gen), tconv_kernel_phase(torch, gen)]
+
+    tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
+    try:
+        t0 = time.perf_counter()
+        store, paths = write_store(tmp, args.seed)
+        store_s = time.perf_counter() - t0
+        paths_result = {arch: main_path_phase(torch, args.seed, arch, store, paths)
+                        for arch in PATHS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in rows:
+        row["launches"] = next(r["launches"] for r in paths_result.values()
+                               if PATHS[r["arch"]]["kernel"] == row["name"])
+        check(row["launches"] > 0, f"{row['name']} ran on its main path")
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "build_s": build_s, "kernels": [b1],
-             "main_path": main_result}, indent=1))
+            {"card": card, "build_s": build_s, "store_write_s": store_s,
+             "kernels": rows, "main_paths": paths_result}, indent=1))
     print(card, flush=True)
-    print(json.dumps({"kernels": [b1]}), flush=True)
+    print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}
+                                  for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

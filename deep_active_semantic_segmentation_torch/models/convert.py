@@ -1,18 +1,20 @@
 """Carry weights across from the JAX package's flax trees.
 
-``flax_to_deeplab_state_dict`` is the exact inverse of the JAX package's
-``models/pretrained.py`` mapping (``mobilenet_state_dict_to_flax`` and
-``deeplab_state_dict_to_flax``): it takes the (params, batch_stats) trees
+``flax_to_deeplab_state_dict`` and ``flax_to_enet_state_dict`` are the
+exact inverses of the JAX package's ``models/pretrained.py`` mappings
+(``mobilenet_state_dict_to_flax`` with ``deeplab_state_dict_to_flax``, and
+``enet_state_dict_to_flax``): each takes the (params, batch_stats) trees
 as numpy and returns a ``state_dict`` under the reference's torch key
 names, which are also this package's module names. So the result loads
 with ``model.load_state_dict`` (strict), a reference checkpoint loads
-unchanged, and the JAX package's ``deeplab_state_dict_to_flax`` maps the
-result back bit for bit.
+unchanged, and the JAX package's mapping takes the result back bit for
+bit.
 
 Rules: conv kernels (kh, kw, I, O) -> (O, I, kh, kw), the same transpose
-for depthwise kernels ((kh, kw, 1, C) -> (C, 1, kh, kw)); BN scale / bias
-/ mean / var -> weight / bias / running_mean / running_var, with
-``num_batches_tracked`` 0.
+for depthwise kernels ((kh, kw, 1, C) -> (C, 1, kh, kw)); transposed-conv
+kernels undo ``pretrained.py::_tconv``: a spatial flip, then
+(kh, kw, I, O) -> (I, O, kh, kw); BN scale / bias / mean / var -> weight /
+bias / running_mean / running_var, with ``num_batches_tracked`` 0.
 """
 
 from __future__ import annotations
@@ -23,10 +25,17 @@ from typing import Dict
 import numpy as np
 import torch
 
+from deep_active_semantic_segmentation_torch.models.enet import stage23_names
+
 
 def _conv(kernel) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(
         np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1))))
+
+
+def _tconv(kernel) -> torch.Tensor:
+    k = np.asarray(kernel, np.float32)[::-1, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))))
 
 
 def _vec(x) -> torch.Tensor:
@@ -109,4 +118,63 @@ def flax_to_deeplab_state_dict(params: Dict, batch_stats: Dict,
     w.conv(("decoder", "last_conv1"), "decoder.last_conv.3")
     w.bn(("decoder", "last_bn1"), "decoder.last_conv.4")
     w.conv(("decoder", "classifier"), "decoder.last_conv.7")
+    return w.sd
+
+
+def flax_to_enet_state_dict(params: Dict, batch_stats: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ENet (params, batch_stats) trees -> reference-named state_dict.
+
+    PReLU slopes (ENet with ``encoder_relu``/``decoder_relu`` False) are not
+    in the JAX package's mapping; they go under this package's own keys,
+    ``initial_block.out_act.weight`` and ``<block>.act.weight``, as (1,)
+    tensors."""
+    w = _Writer(params, batch_stats)
+
+    def prelu(name: str, act: str = "act"):
+        node = params[name].get(act)
+        if node is not None:
+            w.sd[f"{name}.{act}.weight"] = _vec(node["negative_slope"]).reshape(1)
+
+    w.conv(("initial_block", "main_branch"), "initial_block.main_branch")
+    w.bn(("initial_block", "batch_norm"), "initial_block.batch_norm")
+    prelu("initial_block", "out_act")
+
+    def regular(name: str, asymmetric: bool = False):
+        w.conv((name, "ext_conv1"), f"{name}.ext_conv1.0")
+        w.bn((name, "ext_bn1"), f"{name}.ext_conv1.1")
+        if asymmetric:
+            w.conv((name, "ext_conv2a"), f"{name}.ext_conv2.0")
+            w.bn((name, "ext_bn2a"), f"{name}.ext_conv2.1")
+            w.conv((name, "ext_conv2b"), f"{name}.ext_conv2.3")
+            w.bn((name, "ext_bn2b"), f"{name}.ext_conv2.4")
+        else:
+            w.conv((name, "ext_conv2"), f"{name}.ext_conv2.0")
+            w.bn((name, "ext_bn2"), f"{name}.ext_conv2.1")
+        w.conv((name, "ext_conv3"), f"{name}.ext_conv3.0")
+        w.bn((name, "ext_bn3"), f"{name}.ext_conv3.1")
+        prelu(name)
+
+    def upsample(name: str):
+        w.conv((name, "main_conv1"), f"{name}.main_conv1.0")
+        w.bn((name, "main_bn1"), f"{name}.main_conv1.1")
+        w.conv((name, "ext_conv1"), f"{name}.ext_conv1.0")
+        w.bn((name, "ext_bn1"), f"{name}.ext_conv1.1")
+        w.sd[f"{name}.ext_conv2.0.weight"] = _tconv(params[name]["ext_tconv2"]["kernel"])
+        w.bn((name, "ext_bn2"), f"{name}.ext_conv2.1")
+        w.conv((name, "ext_conv3"), f"{name}.ext_conv3.0")
+        w.bn((name, "ext_bn3"), f"{name}.ext_conv3.1")
+        prelu(name)
+
+    regular("downsample1_0")
+    for i in range(1, 5):
+        regular(f"regular1_{i}")
+    regular("downsample2_0")
+    for name, kind, _ in stage23_names():
+        regular(name, asymmetric=kind == "asymmetric")
+    upsample("upsample4_0")
+    regular("regular4_1")
+    regular("regular4_2")
+    upsample("upsample5_0")
+    regular("regular5_1")
+    w.sd["transposed_conv.weight"] = _tconv(params["transposed_conv"]["kernel"])
     return w.sd

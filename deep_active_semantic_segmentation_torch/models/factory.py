@@ -1,5 +1,5 @@
-"""Model factory. Only DeepLab is ported so far; every other architecture
-raises, naming the ROADMAP item that ports it."""
+"""Model factory. DeepLab and ENet are ported so far; every other
+architecture raises, naming the ROADMAP item that ports it."""
 
 from __future__ import annotations
 
@@ -9,10 +9,10 @@ import torch
 
 from deep_active_semantic_segmentation_torch import resolve_device
 from deep_active_semantic_segmentation_torch.models.deeplab import DeepLab
+from deep_active_semantic_segmentation_torch.models.enet import ENet
 from deep_active_semantic_segmentation_torch.models.layers import init_weights
 
-_NOT_PORTED = {"enet": "A12", "unet": "A13", "accuracy_predictor": "A13",
-               "fastscnn": "A14"}
+_NOT_PORTED = {"unet": "A13", "accuracy_predictor": "A13", "fastscnn": "A14"}
 
 
 def build_model(architecture: str, num_classes: int, backbone: str = "mobilenet",
@@ -25,12 +25,18 @@ def build_model(architecture: str, num_classes: int, backbone: str = "mobilenet"
     if architecture in _NOT_PORTED:
         raise NotImplementedError(f"architecture '{architecture}' is not "
                                   f"ported yet (ROADMAP {_NOT_PORTED[architecture]})")
-    if architecture != "deeplab":
-        raise NotImplementedError(architecture)
     device = resolve_device(device)
-    model = DeepLab(num_classes=num_classes, backbone=backbone,
-                    output_stride=output_stride, mc_dropout=mc_dropout,
-                    input_channels=input_channels).to(device)
+    if architecture == "deeplab":
+        model = DeepLab(num_classes=num_classes, backbone=backbone,
+                        output_stride=output_stride, mc_dropout=mc_dropout,
+                        input_channels=input_channels)
+    elif architecture == "enet":
+        # the JAX package's factory (factory.py:35-37): ReLU throughout
+        model = ENet(num_classes=num_classes, encoder_relu=True,
+                     decoder_relu=True)
+    else:
+        raise NotImplementedError(architecture)
+    model = model.to(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     init_weights(model, generator)

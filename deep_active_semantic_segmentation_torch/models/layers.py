@@ -1,9 +1,14 @@
 """Shared NCHW building blocks with the JAX package's semantics.
 
 * ``conv`` / ``batch_norm`` — torch Conv2d and BatchNorm2d as the reference
-  builds them (BN momentum 0.1, eps 1e-5); ``init_weights`` draws every
-  conv kernel kaiming-normal (fan_in, gain^2 = 2, untruncated) from an
-  explicit generator, BN weight 1 / bias 0, conv bias 0.
+  builds them (BN momentum 0.1, eps 1e-5); kernel, padding and dilation
+  may be (h, w) pairs (ENet's asymmetric 5x1 / 1x5 convs).
+  ``init_weights`` draws every conv and transposed-conv kernel
+  kaiming-normal (fan_in, gain^2 = 2, untruncated) from an explicit
+  generator, BN weight 1 / bias 0, conv bias 0.
+* ``activation`` — ENet's one shared activation per block: ReLU, or one
+  scalar PReLU (flax ``nn.PReLU``: slope init 0.01) that the block reuses
+  for all its activations.
 * ``ChannelDropout`` — torch ``nn.Dropout2d`` semantics (one Bernoulli per
   (image, channel), survivors scaled by 1/(1-p)) with the draw taken from
   an explicit ``torch.Generator`` on the tensor's device, so MC-dropout
@@ -14,15 +19,18 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
-def conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
-         dilation: int = 1, groups: int = 1, bias: bool = False) -> nn.Conv2d:
+Pair = Union[int, Tuple[int, int]]
+
+
+def conv(cin: int, cout: int, kernel: Pair, stride: int = 1, padding: Pair = 0,
+         dilation: Pair = 1, groups: int = 1, bias: bool = False) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
                      dilation=dilation, groups=groups, bias=bias)
 
@@ -34,16 +42,25 @@ def batch_norm(channels: int) -> nn.BatchNorm2d:
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Reference ``_init_weight``: kaiming-normal convs, BN weight=1 bias=0;
-    conv biases start at 0 as in the JAX package."""
+    conv biases start at 0 as in the JAX package. A transposed conv's
+    fan_in is its input channels times its window, as for the JAX
+    package's HWIO kernel."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = (m.weight[0].numel() if isinstance(m, nn.Conv2d)
+                      else m.weight[:, 0].numel())
             m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.weight.fill_(1.0)
             m.bias.zero_()
+
+
+def activation(relu: bool) -> nn.Module:
+    """ReLU, or one scalar PReLU with flax's slope init 0.01 (the JAX
+    package's ``models/enet.py::_activation``)."""
+    return nn.ReLU() if relu else nn.PReLU(num_parameters=1, init=0.01)
 
 
 class ChannelDropout(nn.Module):

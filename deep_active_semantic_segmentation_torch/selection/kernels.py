@@ -1,11 +1,15 @@
 """Batch scoring computations shared by the selectors (parity: the JAX
-package's selection/kernels.py, MC-dropout on DeepLab).
+package's selection/kernels.py, MC-dropout on DeepLab and ENet).
 
 One call scores a whole batch on the device and returns (B, H, W) maps.
-The MC sweep runs the deterministic backbone once per batch, then
-``num_steps`` dropout -> ASPP -> decoder forwards; each step's votes go
-into a compact uint8 (S, B, H, W) stack, and the vote entropy is computed
-once at the end.
+The MC sweep runs the deterministic part of the network once per batch
+(DeepLab's backbone; ENet's initial block and ``downsample1_0`` up to its
+dropout), then ``num_steps`` dropout forwards of the rest. Each step's
+votes go into a compact uint8 stack, and the vote entropy is computed
+once at the end. DeepLab votes through kernel B1 (``upsample4_argmax``)
+on decoder-resolution logits, (S, B, H, W); ENet through kernel B2
+(``tconv2x_argmax_parity_major``) on its stage-5 features, parity-major
+(S, B, 4, H/2, W/2), with the entropy map interleaved to (B, H, W) once.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from deep_active_semantic_segmentation_torch.ops import entropy as ent_ops
+from deep_active_semantic_segmentation_torch.ops import tconv_votes as tv
 from deep_active_semantic_segmentation_torch.ops import upsample_argmax as ua
 
 # ImageNet normalization constants (data/transforms.py IMAGENET_MEAN/STD)
@@ -76,15 +81,19 @@ def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
                          compute_dtype: str = "float32",
                          labels_packed: bool = False) -> torch.Tensor:
     """(B, H, W) f32 masked vote-entropy maps over ``num_steps`` MC-dropout
-    forwards of an eval-mode DeepLab, masks drawn from ``generator``.
+    forwards of an eval-mode DeepLab or ENet, masks drawn from
+    ``generator``.
 
     images: (B, H, W, 3) uint8 wire (or normalized float) on the device.
     labels: (B, H, W) label plane, or with ``labels_packed`` the packed
     1-bit valid mask (B, H, ceil(W/8)).
-    fused_upsample: vote through the CUDA upsample4_argmax kernel on
-    decoder-resolution logits when the geometry is an exact 4x; any other
-    geometry (the crop_size=-1 letterbox) upsamples with F.interpolate and
-    takes the argmax.
+    fused_upsample: DeepLab votes through the CUDA upsample4_argmax kernel
+    on decoder-resolution logits when the geometry is an exact 4x; any
+    other geometry (the crop_size=-1 letterbox) upsamples with
+    F.interpolate and takes the argmax. ENet votes through the CUDA
+    tconv2x_argmax_parity_major kernel on its stage-5 features when the
+    geometry is an exact 2x; unfused, it runs its transposed-conv
+    classifier and takes the argmax.
     compute_dtype: 'float32' | 'bfloat16' dtype of the forwards (a model
     of another dtype is cast, see ``cast_for_mc``); the entropy over the
     uint8 vote stack is always f32.
@@ -92,9 +101,10 @@ def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
     if noise_mode != "dropout":
         raise NotImplementedError(f"noise_mode '{noise_mode}' (MC-noise) is "
                                   "not ported yet (ROADMAP A11)")
-    if getattr(model, "model_name", "") != "deeplab":
-        raise NotImplementedError("MC scoring is ported for DeepLab only "
-                                  "(ENet: ROADMAP A12)")
+    model_name = getattr(model, "model_name", "")
+    if model_name not in ("deeplab", "enet"):
+        raise NotImplementedError(f"MC scoring is ported for DeepLab and ENet "
+                                  f"only, not '{model_name}'")
     if model.training:
         raise ValueError("MC scoring needs the model in eval mode (BN at "
                          "running statistics)")
@@ -102,19 +112,38 @@ def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
     B, H, W = images.shape[:3]
     with torch.inference_mode(), _mc_precision():
         x = normalize_on_device(images).to(getattr(torch, compute_dtype))
-        # backbone hoist: every dropout site sits at or after the backbone
-        # outputs, so the deterministic backbone runs once per batch
-        feats = model(x, backbone_only=True)
-        # decoder logits come out at the low-level features' resolution
-        fused = fused_upsample and ua.supports(feats[1].shape[2:], (H, W))
-        votes = torch.empty((num_steps, B, H, W), dtype=torch.uint8,
+        if model_name == "deeplab":
+            # backbone hoist: every dropout site sits at or after the
+            # backbone outputs, so the deterministic backbone runs once
+            feats = model(x, backbone_only=True)
+            # decoder logits come out at the low-level features' resolution
+            fused = fused_upsample and ua.supports(feats[1].shape[2:], (H, W))
+            hoist = {"backbone_features": feats}
+        else:
+            # prefix hoist: the initial block and downsample1_0 up to its
+            # dropout (the first draw) run once
+            feats = model(x, prefix_only=True)
+            # stage-5 features sit at twice the stage-1 grid
+            fused = fused_upsample and tv.supports(
+                [2 * n for n in feats[0].shape[2:]], (H, W))
+            hoist = {"prefix_features": feats}
+        tconv_fused = fused and model_name == "enet"
+        shape = (B, 4, H // 2, W // 2) if tconv_fused else (B, H, W)
+        votes = torch.empty((num_steps,) + shape, dtype=torch.uint8,
                             device=x.device)
         for s in range(num_steps):
-            logits = model(x, use_dropout=True, generator=generator,
-                           upsample_logits=not fused, backbone_features=feats)
-            votes[s] = (ua.upsample4_argmax(logits, out_size=(H, W)) if fused
-                        else logits.argmax(dim=1))
+            out = model(x, use_dropout=True, generator=generator,
+                        upsample_logits=not fused, **hoist)
+            if not fused:
+                votes[s] = out.argmax(dim=1)
+            elif tconv_fused:
+                votes[s] = tv.tconv2x_argmax_parity_major(
+                    out, model.transposed_conv.weight)
+            else:
+                votes[s] = ua.upsample4_argmax(out, out_size=(H, W))
         ent = ent_ops.vote_entropy(votes, num_classes)
+        if tconv_fused:
+            ent = tv.interleave_parity_major(ent)   # once, after the steps
         mask = (ent_ops.unpack_mask(labels, W) if labels_packed
                 else ent_ops.valid_mask(labels, num_classes))
         return torch.where(mask, ent, torch.zeros_like(ent))

@@ -10,6 +10,7 @@ on a machine that has only the port's dependencies:
 import pytest
 import torch
 
+from deep_active_semantic_segmentation_torch.ops import tconv_votes as tv
 from deep_active_semantic_segmentation_torch.ops import upsample_argmax as ua
 from deep_active_semantic_segmentation_torch.selection import kernels
 
@@ -62,4 +63,55 @@ def test_mc_sweep_launches_the_kernel_every_step(cuda_device):
             model, images, labels, kernels.mc_generator(0, 0, cuda_device),
             19, 6, fused_upsample=fused)
         assert ua.upsample4_argmax.launches - before == (6 if fused else 0)
+    assert (maps[True] - maps[False]).abs().mean().item() < 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [((8, 16, 256, 256), 19), ((3, 16, 33, 47), 19),
+                                        ((1, 16, 1, 5), 19), ((2, 8, 9, 7), 21)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tconv2x_argmax_kernel_equals_plain(cuda_device, shape, cout, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape) + cout)
+    x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    weight = (torch.randn((shape[1], cout, 3, 3), device=cuda_device,
+                          generator=gen) / shape[1] ** 0.5).to(dtype)
+    before = tv.tconv2x_argmax_parity_major.launches
+    votes = tv.tconv2x_argmax_parity_major(x, weight)
+    torch.cuda.synchronize()
+    assert tv.tconv2x_argmax_parity_major.launches == before + 1
+    assert votes.shape == (shape[0], 4) + shape[2:] and votes.dtype == torch.int32
+    # one rounding per product and per sum, in the plain version's order
+    assert torch.equal(votes, tv.tconv2x_argmax_parity_major_plain(x, weight))
+
+
+@pytest.mark.cuda
+def test_tconv2x_argmax_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(2, 16, 17, 17, device=cuda_device)
+    weight = torch.zeros(16, 19, 3, 3, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tv.tconv2x_argmax_parity_major(x.transpose(2, 3), weight)
+    with pytest.raises(ValueError, match="Cin <= 32"):
+        tv.tconv2x_argmax_parity_major(torch.zeros(1, 40, 4, 4, device=cuda_device),
+                                       torch.zeros(40, 19, 3, 3, device=cuda_device))
+    with pytest.raises(ValueError, match="weight on"):
+        tv.tconv2x_argmax_parity_major(x, weight.cpu())
+
+
+@pytest.mark.cuda
+def test_enet_mc_sweep_launches_the_kernel_every_step(cuda_device):
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+
+    model = build_model("enet", 19, device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    images = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                           device=cuda_device, generator=gen.manual_seed(0))
+    labels = torch.zeros(2, 64, 64, dtype=torch.uint8, device=cuda_device)
+    maps = {}
+    for fused in (True, False):
+        before = tv.tconv2x_argmax_parity_major.launches
+        maps[fused] = kernels.mc_vote_entropy_maps(
+            model, images, labels, kernels.mc_generator(0, 0, cuda_device),
+            19, 6, fused_upsample=fused)
+        assert tv.tconv2x_argmax_parity_major.launches - before == (6 if fused else 0)
+    assert maps[True].shape == (2, 64, 64)
     assert (maps[True] - maps[False]).abs().mean().item() < 0.02

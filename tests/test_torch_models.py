@@ -18,7 +18,8 @@ from deep_active_semantic_segmentation_torch.models.convert import (
 from deep_active_semantic_segmentation_torch.models.layers import ChannelDropout
 from deep_active_semantic_segmentation_tpu.models.pretrained import (
     deeplab_state_dict_to_flax)
-from torch_port_helpers import jax_deeplab, port_deeplab
+from torch_port_helpers import (  # noqa: F401  (one_torch_thread: autouse)
+    jax_deeplab, one_torch_thread, port_deeplab)
 
 REL_TOL = 1e-4
 

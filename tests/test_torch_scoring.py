@@ -25,7 +25,8 @@ from deep_active_semantic_segmentation_tpu.data.store import (
 from deep_active_semantic_segmentation_tpu.selection import kernels as jx_kernels
 from deep_active_semantic_segmentation_tpu.selection.base import (
     rank_descending as jx_rank)
-from torch_port_helpers import NUM_CLASSES, jax_deeplab, port_deeplab, write_pool
+from torch_port_helpers import (  # noqa: F401  (one_torch_thread: autouse)
+    NUM_CLASSES, jax_deeplab, one_torch_thread, port_deeplab, write_pool)
 
 CROP = 33
 BATCH = 4

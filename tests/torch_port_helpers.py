@@ -1,6 +1,7 @@
 """Shared set-up for the PyTorch-port parity tests (tests/test_torch_*.py):
-one JAX DeepLab-MobileNetV2 with random weights and non-trivial BN
-statistics, and the same weights carried into the port's model."""
+a JAX DeepLab-MobileNetV2 or ENet with random weights and non-trivial BN
+statistics (and PReLU slopes), and the same weights carried into the
+port's model."""
 
 from __future__ import annotations
 
@@ -9,8 +10,22 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 NUM_CLASSES = 19
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module's torch CPU ops on one thread. Its forwards are
+    many small ops; under pytest-xdist every worker's intra-op pool
+    competes for the same cores, and the pools' barriers then cost far more
+    than the ops themselves. Import this fixture into the module to use it."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def jax_deeplab(seed: int = 0, num_classes: int = NUM_CLASSES):
@@ -48,6 +63,79 @@ def port_deeplab(params, stats, num_classes: int = NUM_CLASSES):
                     output_stride=16, mc_dropout=True)
     model.load_state_dict(flax_to_deeplab_state_dict(params, stats))
     return model.eval()
+
+
+def jax_enet(seed: int = 0, num_classes: int = NUM_CLASSES, **relu):
+    """(flax ENet, params, batch_stats) as numpy trees; ``relu`` takes
+    encoder_relu / decoder_relu (the JAX factory's config sets both True,
+    the class defaults are False / True). The tree's shapes come from
+    ``jax.eval_shape`` (an ENet init, even jitted, takes seconds) and every
+    leaf is drawn with numpy from ``seed``: kernels kaiming-normal (fan_in),
+    BN scale and var in [0.5, 1.5), bias and mean ~0.1 N(0, 1), PReLU
+    slopes in [0.05, 0.3)."""
+    from deep_active_semantic_segmentation_tpu.models.enet import ENet
+
+    model = ENet(num_classes=num_classes, **relu)
+    shapes = jax.eval_shape(partial(model.init, train=False),
+                            {"params": jax.random.PRNGKey(0)},
+                            jax.ShapeDtypeStruct((1, 32, 32, 3), jnp.float32))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, x):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(x.shape[:-1]))
+            return (rng.randn(*x.shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        if name in ("mean", "bias"):
+            return (0.1 * rng.randn(*x.shape)).astype(np.float32)
+        if name == "negative_slope":
+            return rng.uniform(0.05, 0.3, x.shape).astype(np.float32)
+        raise KeyError(name)
+
+    params = jax.tree_util.tree_map_with_path(draw, shapes["params"])
+    stats = jax.tree_util.tree_map_with_path(draw, shapes["batch_stats"])
+    return model, params, stats
+
+
+def port_enet(params, stats, num_classes: int = NUM_CLASSES, **relu):
+    """The port's ENet (CPU, eval mode) holding the JAX weights."""
+    from deep_active_semantic_segmentation_torch.models.convert import (
+        flax_to_enet_state_dict)
+    from deep_active_semantic_segmentation_torch.models.enet import ENet
+
+    model = ENet(num_classes=num_classes, **relu)
+    model.load_state_dict(flax_to_enet_state_dict(params, stats))
+    return model.eval()
+
+
+def port_deeplab(params, stats, num_classes: int = NUM_CLASSES):
+    """The port's DeepLab (CPU, eval mode) holding the JAX weights."""
+    from deep_active_semantic_segmentation_torch.models.convert import (
+        flax_to_deeplab_state_dict)
+    from deep_active_semantic_segmentation_torch.models.deeplab import DeepLab
+
+    model = DeepLab(num_classes=num_classes, backbone="mobilenet",
+                    output_stride=16, mc_dropout=True)
+    model.load_state_dict(flax_to_deeplab_state_dict(params, stats))
+    return model.eval()
+
+
+def write_pool(store, n: int, seed: int, hw=(40, 90)):
+    """``n`` RGB+label records of size ``hw`` into ``store``: random pixels,
+    blocky labels with a void (255) band. Returns the keys."""
+    rng = np.random.RandomState(seed)
+    keys = []
+    for i in range(n):
+        img = rng.randint(0, 256, hw + (3,), dtype=np.uint8)
+        lab = rng.randint(0, NUM_CLASSES, hw).astype(np.uint8)
+        lab[: rng.randint(1, hw[0] // 3)] = 255
+        key = f"/leftImg8bit/train/city/img_{i:03d}.png".encode()
+        store.put(key, np.dstack((img, lab)))
+        keys.append(key)
+    store.finalize(keys)
+    return keys
 
 
 def write_pool(store, n: int, seed: int, hw=(40, 90)):
