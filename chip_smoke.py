@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--seed N] [--out results.json]
+    python3 chip_smoke.py [--seed N] [--out results.json] [--old-tree DIR]
 
 1. Requires CUDA (exits non-zero without it) and prints the card's name
    and power limit as nvidia-smi reports them.
 2. Builds every hand-written kernel from the sources in the checkout
-   (one nvcc per source, all started together) and prints the seconds.
+   (one nvcc per source, all started together) and prints the seconds,
+   ptxas's registers and spills, and the tensor-core instructions in each
+   library's SASS (B2 must hold HGMMA).
 3. Kernel phase: each kernel (B1 upsample4_argmax, B2
    tconv2x_argmax_parity_major) against its plain PyTorch version on the
-   card at its main path's shapes plus ragged ones, with the stated bar,
-   and timed with CUDA events beside its bound and the PyTorch library
-   call that computes the same function.
+   card at its main path's shapes plus ragged and tile-edge ones, with the
+   stated bar (B1 bit-exact; B2 the vote bar), and timed with CUDA events
+   beside its bound and the PyTorch library call that computes the same
+   function: warm (back-to-back on one input, which stays in L2) and cold
+   (L2 flushed before each launch). With --old-tree DIR, the kernels of
+   that checkout (the design these replace) are built and timed in turns
+   with these.
 4. Main-path phases, over one synthetic Cityscapes-sized DirectoryStore
    of 20 records written once: one MC-dropout vote-entropy selection
    query at full width through the selector a user calls, for
@@ -47,9 +53,15 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores.
+# outside the tensor cores, dense TF32 FLOP/s on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_TC_FLOPS = 495e12
+
+# written between two cold launches: more than the 50 MB L2, and long
+# enough on the card (~80 us) that the host enqueues the next launch
+# before the card reaches it
+FLUSH_BYTES = 256 << 20
 
 NUM_CLASSES = 19
 POOL = 20
@@ -74,7 +86,8 @@ def card_line() -> str:
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls
-    (CUDA events, after warm-up)."""
+    (CUDA events, after warm-up). Where ``fn`` enqueues faster than the
+    card runs it, host time between calls is counted too."""
     import torch
 
     for _ in range(warmup):
@@ -88,6 +101,70 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def hold_card(ms: float) -> None:
+    """Keep the card busy for about ``ms`` (a spin kernel), so that the host
+    can enqueue a run of calls before the card reaches the first one."""
+    import torch
+
+    if not hasattr(hold_card, "cycles_per_ms"):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        b.synchronize()
+        hold_card.cycles_per_ms = 10_000_000 / a.elapsed_time(b)
+    torch.cuda._sleep(int(ms * hold_card.cycles_per_ms))
+
+
+def warm_ms(fn, iters: int = 200) -> float:
+    """Mean device milliseconds of one call of ``fn`` over ``iters``
+    back-to-back calls on the same inputs, which stay in L2 (as in the MC
+    sweep, where the layer before has just written them). The card is held
+    while the calls are enqueued, so the wrapper's host time is not
+    counted."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    hold_card(min(2 * iters * host_ms + 5, 500))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, iters: int = 50) -> float:
+    """Median device milliseconds of one call of ``fn`` with L2 flushed
+    before each: FLUSH_BYTES written between calls, one pair of events
+    around each call."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    hold_card(5)
+    for k, (a, b) in enumerate(pairs):
+        flush.fill_(float(k))
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    del flush
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
 def check(cond: bool, what: str) -> None:
@@ -113,23 +190,112 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def bound(bytes_moved: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
-    operations over the f32 rate outside the tensor cores."""
+def bound(bytes_moved: float, flops: float, flops_per_s: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate of the unit that does them."""
     bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / F32_FLOPS * 1e3
+    bound_ops = flops / flops_per_s * 1e3
     return (max(bound_bytes, bound_ops),
             "bytes" if bound_bytes >= bound_ops else "operations")
 
 
 # ---------------------------------------------------------------- kernels
 
-def upsample_kernel_phase(torch, gen):
-    """B1 against its plain version: >= 99.5% of votes agree and every vote
-    agrees where the interpolated top-2 gap exceeds 1e-3
-    (tests/test_pallas_kernels.py bar). max_abs_err: the largest drop in
-    the interpolated max logit from taking the kernel's vote instead of the
-    plain one (0 where they agree)."""
+DESIGNS = {
+    "upsample4_argmax":
+        "one thread per source cell makes its 4x4 output patch (16 "
+        "running maxima in registers); 4x32 source cells per block staged "
+        "with a halo in shared memory, 32 classes at a time; output rows "
+        "stored through shared memory; bit-exact (no FMA)",
+    "tconv2x_argmax_parity_major":
+        "per-parity GEMM on the tensor cores, wgmma m64n24k8 TF32 (A "
+        "from registers, B from shared memory) in three passes (hi.hi + "
+        "hi.lo + lo.hi; two for bf16); persistent one-warpgroup blocks stage "
+        "the split weight once and walk 4x16-pixel tiles staged with a halo "
+        "in shared memory; argmax by transposed quad shuffles",
+}
+
+
+def sass_tensor_ops(lib: Path):
+    """Tensor-core instructions in a built library's SASS (cuobjdump), by
+    opcode; None where the toolkit has no cuobjdump."""
+    from deep_active_semantic_segmentation_torch import cuda_build
+
+    tool = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    ops = {}
+    for word in sass.split():
+        if word.startswith(("HMMA", "HGMMA")):
+            ops[word.rstrip(";")] = ops.get(word.rstrip(";"), 0) + 1
+    return ops
+
+
+def old_kernels(tree: Path):
+    """The kernels of another checkout of the repo (the design this one
+    replaces), built from its sources as the package builds its own:
+    kernel name -> {dtype: C entry point}. The C signatures are this
+    checkout's (the wrappers' ``_entry``)."""
+    import torch
+
+    from deep_active_semantic_segmentation_torch import cuda_build
+    from deep_active_semantic_segmentation_torch.ops import tconv_votes as tv
+    from deep_active_semantic_segmentation_torch.ops import upsample_argmax as ua
+
+    csrc = tree / "deep_active_semantic_segmentation_torch" / "csrc"
+    cuda_build.build(csrc=csrc)
+    return {kernel: {dtype: op._entry(dtype, csrc)
+                     for dtype in (torch.float32, torch.bfloat16)}
+            for kernel, op in (("upsample4_argmax", ua),
+                               ("tconv2x_argmax_parity_major", tv))}
+
+
+def compare_designs(new_fn, old_fn):
+    """Warm and cold ms of the new design and, where ``old_fn`` is given,
+    of the old one, in turns (old, new, new, old) on the same inputs."""
+    if old_fn is None:
+        return {"warm_ms": warm_ms(new_fn), "cold_ms": cold_ms(new_fn)}
+    runs = {"new": [], "old": []}
+    for which in ("old", "new", "new", "old"):
+        fn = new_fn if which == "new" else old_fn
+        runs[which].append((warm_ms(fn), cold_ms(fn)))
+    result = {"warm_ms": float(np.mean([r[0] for r in runs["new"]])),
+              "cold_ms": float(np.mean([r[1] for r in runs["new"]])),
+              "turns_warm_cold_ms": runs["new"]}
+    result["old_design"] = {
+        "warm_ms": float(np.mean([r[0] for r in runs["old"]])),
+        "cold_ms": float(np.mean([r[1] for r in runs["old"]])),
+        "turns_warm_cold_ms": runs["old"]}
+    return result
+
+
+def timing_fields(name, times, bound_ms):
+    """The row's time fields: ms is the warm time; bound_share is the bound
+    over the cold time (a warm share can exceed 1 only through L2)."""
+    row = {"ms": times["warm_ms"], "kernel_ms": times["warm_ms"], **times,
+           "bound_share": bound_ms / times["cold_ms"],
+           "warm_bound_share": bound_ms / times["warm_ms"],
+           "design": DESIGNS[name]}
+    print(f"{name} timing: warm {times['warm_ms']:.5f} ms, cold "
+          f"{times['cold_ms']:.5f} ms, bound {bound_ms:.5f} ms, share of "
+          f"bound (cold) {row['bound_share']:.3f}"
+          + (f"; old design warm {times['old_design']['warm_ms']:.5f} ms, cold "
+             f"{times['old_design']['cold_ms']:.5f} ms" if "old_design" in times else ""),
+          flush=True)
+    return row
+
+
+def upsample_kernel_phase(torch, gen, old=None):
+    """B1 against its plain version: the votes equal bit for bit (both round
+    each product and sum once, in the same order). Also printed: the share
+    of equal votes, whether every vote agrees where the interpolated top-2
+    gap exceeds 1e-3 (tests/test_pallas_kernels.py bar), and max_abs_err:
+    the largest drop in the interpolated max logit from taking the
+    kernel's vote instead of the plain one (0 where they agree). Shapes:
+    the main path's, and tile edges (h, w off the 4x32 tile; h = w = 2; a
+    67-wide row, 268 B, not 16-byte aligned), in both dtypes."""
     import torch.nn.functional as F
 
     from deep_active_semantic_segmentation_torch.ops import upsample_argmax as ua
@@ -138,7 +304,11 @@ def upsample_kernel_phase(torch, gen):
     for shape, dtype in (((5, 19, 129, 129), torch.float32),
                          ((5, 19, 129, 129), torch.bfloat16),
                          ((3, 21, 17, 33), torch.float32),
-                         ((1, 19, 129, 129), torch.float32)):
+                         ((1, 19, 129, 129), torch.float32),
+                         ((2, 19, 2, 2), torch.float32),
+                         ((2, 19, 2, 2), torch.bfloat16),
+                         ((1, 19, 130, 67), torch.float32),
+                         ((1, 19, 130, 67), torch.bfloat16)):
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         votes = ua.upsample4_argmax(x)
         plain = ua.upsample4_argmax_plain(x)
@@ -153,44 +323,54 @@ def upsample_kernel_phase(torch, gen):
                - full.gather(1, votes.long()[:, None])).abs().max().item()
         row = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
                "agreement": same.float().mean().item(),
+               "bit_exact": bool(torch.equal(votes, plain)),
                "confident_exact": bool(same[confident].all().item()),
                "max_abs_err": err}
         checks.append(row)
         print("upsample4_argmax check", json.dumps(row), flush=True)
-        check(row["agreement"] >= 0.995 and row["confident_exact"],
-              f"upsample4_argmax vs plain at {shape} {dtype}")
+        check(row["bit_exact"], f"upsample4_argmax equals plain at {shape} {dtype}")
 
     # timing at the main path's shape and dtype (f32: MC dtype 'auto')
     B, C, h, w = PATHS["deeplab"]["batch"], NUM_CLASSES, 129, 129
     H, W = 4 * (h - 1) + 1, 4 * (w - 1) + 1
     x = torch.randn((B, C, h, w), device="cuda", generator=gen)
-    ms = cuda_ms(lambda: ua.upsample4_argmax(x), 200)
-    plain_ms = cuda_ms(lambda: ua.upsample4_argmax_plain(x), 10)
-    library_ms = cuda_ms(lambda: F.interpolate(
+    old_fn = None
+    if old is not None:
+        fn, out = old["upsample4_argmax"][torch.float32], torch.empty(
+            (B, H, W), dtype=torch.int32, device="cuda")
+        old_fn = lambda: fn(x.data_ptr(), out.data_ptr(), B, C, h, w,  # noqa: E731
+                            torch.cuda.current_stream().cuda_stream)
+    times = compare_designs(lambda: ua.upsample4_argmax(x), old_fn)
+    plain_ms = warm_ms(lambda: ua.upsample4_argmax_plain(x), 10)
+    library_ms = warm_ms(lambda: F.interpolate(
         x, size=(H, W), mode="bilinear", align_corners=True).argmax(1), 50)
     bytes_moved = x.numel() * 4 + B * H * W * 4
     flops = B * H * W * C * 9  # three lerps of 2 mul + 1 add per class
-    bound_ms, bound_by = bound(bytes_moved, flops)
+    bound_ms, bound_by = bound(bytes_moved, flops, F32_FLOPS)
     return {
         "name": "upsample4_argmax", "route": "cuda",
         "source": "deep_active_semantic_segmentation_torch/csrc/upsample_argmax.cu",
         "replaces": "deep_active_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:73",
         "launches": None,  # filled from the main-path run
         "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        **timing_fields("upsample4_argmax", times, bound_ms),
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "timed_shape": [B, C, h, w], "timed_dtype": "float32",
         "checks": checks,
     }
 
 
-def tconv_kernel_phase(torch, gen):
-    """B2 against its plain version: >= 99.5% of votes agree and every vote
-    agrees where the parity's top-2 logit gap exceeds 1e-3 (the B1 bar);
-    bit-for-bit equality is the design target and is printed.
-    max_abs_err: the largest drop in the f64 logit from taking the
-    kernel's vote instead of the plain one (0 where they agree)."""
+def tconv_kernel_phase(torch, gen, old=None):
+    """B2 against its plain version, the bar: >= 99.5% of votes equal and
+    every vote equal where it is decided (ops/tconv_votes.py's
+    confident_votes). The kernel sums
+    in another order, three TF32 passes on the tensor cores, so bit
+    equality is printed, not required. max_abs_err: the largest drop in
+    the f64 logit from taking the kernel's vote instead of the plain one
+    (0 where they agree). Shapes: the main path's, ragged ones and tile
+    edges (h, w off the 4x16 tile; one pixel; a 129-wide row, 516 B, not
+    16-byte aligned), in both dtypes."""
     import torch.nn.functional as F
 
     from deep_active_semantic_segmentation_torch.ops import tconv_votes as tv
@@ -203,7 +383,11 @@ def tconv_kernel_phase(torch, gen):
     for shape, dtype in (((8, 16, 256, 256), torch.float32),
                          ((8, 16, 256, 256), torch.bfloat16),
                          ((3, 16, 33, 47), torch.float32),
-                         ((1, 16, 1, 5), torch.float32)):
+                         ((1, 16, 1, 5), torch.float32),
+                         ((2, 16, 65, 129), torch.float32),
+                         ((2, 16, 65, 129), torch.bfloat16),
+                         ((1, 16, 1, 1), torch.float32),
+                         ((1, 16, 1, 1), torch.bfloat16)):
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         weight = (torch.randn((shape[1], NUM_CLASSES, 3, 3), device="cuda",
                               generator=gen) / 4.0).to(dtype)
@@ -211,51 +395,58 @@ def tconv_kernel_phase(torch, gen):
         plain = tv.tconv2x_argmax_parity_major_plain(x, weight)
         torch.cuda.synchronize()
         full = tconv(x.double(), weight.double())           # (B, C, 2h, 2w)
-        top2 = full.topk(2, dim=1).values
-        confident = (top2[:, 0] - top2[:, 1]) > 1e-3
+        name = str(dtype).split(".")[1]
+        confident = tv.confident_votes(full, name)
         kv = tv.interleave_parity_major(votes)
         pv = tv.interleave_parity_major(plain)
         same = kv == pv
         err = (full.gather(1, pv.long()[:, None])
                - full.gather(1, kv.long()[:, None])).abs().max().item()
-        row = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
+        row = {"shape": list(shape), "dtype": name,
                "agreement": same.float().mean().item(),
                "bit_exact": bool(torch.equal(votes, plain)),
                "confident_exact": bool(same[confident].all().item()),
+               "confident_share": confident.float().mean().item(),
                "max_abs_err": err}
         checks.append(row)
         print("tconv2x_argmax_parity_major check", json.dumps(row), flush=True)
         check(row["agreement"] >= 0.995 and row["confident_exact"],
               f"tconv2x_argmax_parity_major vs plain at {shape} {dtype}")
-        del full, top2
+        del full, confident
 
     # timing at the ENet path's shape and dtype (f32: MC dtype 'auto')
     B, Cin, h, w = PATHS["enet"]["batch"], 16, 256, 256
     C = NUM_CLASSES
     x = torch.randn((B, Cin, h, w), device="cuda", generator=gen)
     weight = torch.randn((Cin, C, 3, 3), device="cuda", generator=gen) / 4.0
-    ms = cuda_ms(lambda: tv.tconv2x_argmax_parity_major(x, weight), 200)
-    plain_ms = cuda_ms(lambda: tv.tconv2x_argmax_parity_major_plain(x, weight), 10)
+    old_fn = None
+    if old is not None:
+        fn, out = old["tconv2x_argmax_parity_major"][torch.float32], torch.empty(
+            (B, 4, h, w), dtype=torch.int32, device="cuda")
+        old_fn = lambda: fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(),  # noqa: E731
+                            B, Cin, h, w, C, torch.cuda.current_stream().cuda_stream)
+    times = compare_designs(lambda: tv.tconv2x_argmax_parity_major(x, weight), old_fn)
+    plain_ms = warm_ms(lambda: tv.tconv2x_argmax_parity_major_plain(x, weight), 10)
     saved = torch.backends.cudnn.allow_tf32
     try:
         torch.backends.cudnn.allow_tf32 = True     # PyTorch's default
-        library_ms = cuda_ms(lambda: tconv(x, weight).argmax(1), 50)
+        library_ms = warm_ms(lambda: tconv(x, weight).argmax(1), 50)
         torch.backends.cudnn.allow_tf32 = False
-        library_ms_fp32 = cuda_ms(lambda: tconv(x, weight).argmax(1), 50)
+        library_ms_fp32 = warm_ms(lambda: tconv(x, weight).argmax(1), 50)
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     bytes_moved = x.numel() * 4 + B * 4 * h * w * 4
     # non-zero taps per input pixel over the four parities: 1 + 2 + 2 + 4
     flops = B * h * w * 9 * Cin * C * 2
-    bound_ms, bound_by = bound(bytes_moved, flops)
+    bound_ms, bound_by = bound(bytes_moved, flops, TF32_TC_FLOPS)
     return {
         "name": "tconv2x_argmax_parity_major", "route": "cuda",
         "source": "deep_active_semantic_segmentation_torch/csrc/tconv_votes.cu",
         "replaces": "deep_active_semantic_segmentation_tpu/ops/pallas/tconv_votes_fused.py:125",
         "launches": None,  # filled from the main-path run
         "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        **timing_fields("tconv2x_argmax_parity_major", times, bound_ms),
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "library": "F.conv_transpose2d(s2, p1, op1).argmax(1), cuDNN TF32 on",
         "library_ms_tf32_off": library_ms_fp32,
@@ -421,17 +612,28 @@ def profile_sweep(torch, sweep, arch: str):
     device_ms = sum(r[0] for r in rows) / 1e3
     top = [{"kernel": k[:120], "device_ms": us / 1e3, "calls": n}
            for us, k, n in rows[:15]]
+    ours = [{"kernel": k[:120], "device_ms": us / 1e3, "calls": n,
+             "share": us / 1e3 / device_ms}
+            for us, k, n in rows if "_argmax" in k and "_kernel" in k]
     print("%s profile of one MC sweep: wall %.3f ms, device kernels %.3f ms" % (
         arch, wall_ms, device_ms), flush=True)
     for r in top:
         print("  %9.3f ms %5d  %s" % (r["device_ms"], r["calls"], r["kernel"]))
-    return {"wall_ms": wall_ms, "device_kernel_ms": device_ms, "top": top}
+    for r in ours:
+        print("  hand-written: %9.3f ms %5d  (%.1f%%)  %s" % (
+            r["device_ms"], r["calls"], 100 * r["share"], r["kernel"]))
+    return {"wall_ms": wall_ms, "device_kernel_ms": device_ms, "top": top,
+            "hand_written": ours}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the full results as JSON here")
+    ap.add_argument("--old-tree", type=Path,
+                    help="another checkout of the repo (e.g. a git archive of "
+                         "the parent commit): its kernels are built too and "
+                         "timed in turns with these on the same inputs")
     args = ap.parse_args(argv)
 
     import torch
@@ -454,9 +656,16 @@ def main(argv=None) -> int:
     print(f"kernel build: {build_s:.2f} s", flush=True)
     for name, text in reports.items():
         print(f"nvcc {name}:\n{text.strip()}", flush=True)
+    sass = {name: sass_tensor_ops(cuda_build.library_path(name))
+            for name in cuda_build.SOURCES}
+    print("tensor-core instructions in the SASS:", json.dumps(sass), flush=True)
+    if sass["tconv_votes"] is not None:
+        check(any(op.startswith("HGMMA") for op in sass["tconv_votes"]),
+              "B2 runs on the tensor cores (HGMMA in its SASS)")
 
+    old = old_kernels(args.old_tree) if args.old_tree else None
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows = [upsample_kernel_phase(torch, gen), tconv_kernel_phase(torch, gen)]
+    rows = [upsample_kernel_phase(torch, gen, old), tconv_kernel_phase(torch, gen, old)]
 
     tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
     try:
@@ -476,6 +685,7 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "store_write_s": store_s,
+             "sass_tensor_ops": sass,
              "kernels": rows, "main_paths": paths_result}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes plain C entry points. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``_build/``
 (git-ignored) at first use, and loaded with ``ctypes``; no PyTorch headers
 are involved, so a build takes seconds. Library names carry a hash of the
-source and the flags, so an edited source is never served a stale build.
+source and the flags, so an edited source is never served a stale build,
+and the sources of another checkout (``csrc``, to time an older design
+beside this one) build into the same directory without a clash.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Path, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -41,24 +43,24 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+def library_path(name: str, csrc: Path = CSRC_DIR) -> Path:
+    src = (Path(csrc) / f"{name}.cu").read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every named source that has no current library, one nvcc
-    process per source, all started together. Returns each compiled
-    source's compiler output (ptxas register and spill report)."""
+def build(names: Iterable[str] = SOURCES, csrc: Path = CSRC_DIR) -> Dict[str, str]:
+    """Compile every named source in ``csrc`` that has no current library,
+    one nvcc process per source, all started together. Returns each
+    compiled source's compiler output (ptxas register and spill report)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(Path(csrc) / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -75,14 +77,14 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+def load(name: str, csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """The loaded library for ``<csrc>/<name>.cu``, built at first use."""
     with _lock:
-        lib = _libs.get(name)
+        path = library_path(name, csrc)
+        lib = _libs.get(path)
         if lib is None:
-            path = library_path(name)
             if not path.exists():
-                build([name])
+                build([name], csrc)
             lib = ctypes.CDLL(str(path))
-            _libs[name] = lib
+            _libs[path] = lib
         return lib

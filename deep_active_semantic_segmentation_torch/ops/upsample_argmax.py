@@ -26,12 +26,14 @@ _ENTRY = {torch.float32: "upsample4_argmax_f32",
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
+def _entry(dtype: torch.dtype, csrc=None):
     """The C entry point for ``dtype``, typed: every pointer and the stream
-    a c_void_p, so ctypes never cuts them to 32 bits."""
+    a c_void_p, so ctypes never cuts them to 32 bits. ``csrc``: another
+    checkout's sources to build it from (default: this package's)."""
     from deep_active_semantic_segmentation_torch import cuda_build
 
-    fn = getattr(cuda_build.load("upsample_argmax"), _ENTRY[dtype])
+    lib = cuda_build.load("upsample_argmax", csrc or cuda_build.CSRC_DIR)
+    fn = getattr(lib, _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

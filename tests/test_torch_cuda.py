@@ -26,7 +26,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(5, 19, 129, 129), (3, 21, 17, 33),
-                                   (1, 19, 129, 129), (2, 7, 1, 5)])
+                                   (1, 19, 129, 129), (2, 7, 1, 5),
+                                   # tile edges: h, w off the 4 x 32 tile, h = w = 2,
+                                   # a 67-wide row (268 B, not 16-byte aligned),
+                                   # more classes than one staged chunk
+                                   (2, 19, 2, 2), (1, 19, 130, 67), (1, 40, 9, 35)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_upsample4_argmax_kernel_equals_plain(cuda_device, shape, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
@@ -68,7 +72,12 @@ def test_mc_sweep_launches_the_kernel_every_step(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,cout", [((8, 16, 256, 256), 19), ((3, 16, 33, 47), 19),
-                                        ((1, 16, 1, 5), 19), ((2, 8, 9, 7), 21)])
+                                        ((1, 16, 1, 5), 19), ((2, 8, 9, 7), 21),
+                                        # tile edges: h, w off the 4 x 16 tile, one
+                                        # pixel, a 129-wide row (not 16-byte aligned),
+                                        # Cin off the 8-channel chunk, 32 classes
+                                        ((2, 16, 65, 129), 19), ((1, 16, 1, 1), 19),
+                                        ((2, 13, 6, 40), 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tconv2x_argmax_kernel_equals_plain(cuda_device, shape, cout, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(sum(shape) + cout)
@@ -80,8 +89,15 @@ def test_tconv2x_argmax_kernel_equals_plain(cuda_device, shape, cout, dtype):
     torch.cuda.synchronize()
     assert tv.tconv2x_argmax_parity_major.launches == before + 1
     assert votes.shape == (shape[0], 4) + shape[2:] and votes.dtype == torch.int32
-    # one rounding per product and per sum, in the plain version's order
-    assert torch.equal(votes, tv.tconv2x_argmax_parity_major_plain(x, weight))
+    # three TF32 passes (two for bf16) on the tensor cores: f32-level
+    # logits in another order, so the bar, not bit equality: >= 99.5% of
+    # votes equal, and all where the vote is decided
+    full = torch.nn.functional.conv_transpose2d(
+        x.double(), weight.double(), stride=2, padding=1, output_padding=1)
+    same = (tv.interleave_parity_major(votes) == tv.interleave_parity_major(
+        tv.tconv2x_argmax_parity_major_plain(x, weight)))
+    assert same.float().mean().item() >= 0.995
+    assert same[tv.confident_votes(full, str(dtype).split(".")[1])].all()
 
 
 @pytest.mark.cuda
