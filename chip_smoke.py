@@ -31,8 +31,23 @@
    layers are timed apart: the host geometry of one batch, the
    device-resident MC sweep of one batch, and a torch.profiler breakdown
    of that sweep by device kernel.
-5. Prints one {"kernels": [...]} line, then, as the last line,
-   {"ok": true, "device": {...}}. Any failed check raises: exit code 1.
+5. Training, over the same store as a dataset (train split, a 5-record
+   val split, seed sets): DeepLab train steps at full width (crop 513,
+   batch 5, SGD lr 0.01 poly, balanced weights) in bf16 and in f32, timed
+   on a device-resident batch, with peak memory, finite and falling
+   losses, and a profile of one bf16 step; a Trainer epoch through the
+   port's Loader; eval images/s and the eval confusion matrix against a
+   host bincount; one step on the card against the same step on the CPU
+   in f32 and in f64 (TF32 off, dropout off, BN at running statistics).
+6. One AL round of the canonical experiment through run_active_loop
+   (variance mode, 20-image pool, 10-image seed set, active batch 5, 1
+   epoch, 2 rounds), launch counts set to 0 just before and read just
+   after: selections 10 then 15, best.ckpt reloads bit for bit, B1 20
+   launches per scoring batch and no B2, finite scores whose top 5 is the
+   pick; the round's seconds in train, validate and select.
+7. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+   last line, {"ok": true, "device": {...}}. Any failed check raises:
+   exit code 1.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -41,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import random
 import shutil
 import subprocess
 import sys
@@ -457,8 +473,8 @@ def tconv_kernel_phase(torch, gen, old=None):
 
 # --------------------------------------------------------------- main path
 
-def write_store(root: Path, seed: int):
-    """POOL Cityscapes-sized (1024x2048) RGB+label records from ``seed``;
+def write_store(root: Path, seed: int, n: int = POOL, split: str = "train"):
+    """``n`` Cityscapes-sized (1024x2048) RGB+label records from ``seed``;
     labels are blocky class maps with void (255) bands, as Cityscapes
     labels are."""
     from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
@@ -466,12 +482,12 @@ def write_store(root: Path, seed: int):
     rng = np.random.RandomState(seed)
     store = DirectoryStore(str(root), readonly=False)
     keys = []
-    for i in range(POOL):
+    for i in range(n):
         img = rng.randint(0, 256, (1024, 2048, 3), dtype=np.uint8)
         lab = np.kron(rng.randint(0, NUM_CLASSES, (16, 32)),
                       np.ones((64, 64), np.int64)).astype(np.uint8)
         lab[:rng.randint(40, 120)] = 255
-        key = f"/leftImg8bit/train/city/city_{i:06d}_leftImg8bit.png".encode()
+        key = f"/leftImg8bit/{split}/city/city_{i:06d}_leftImg8bit.png".encode()
         store.put(key, np.dstack((img, lab)))
         keys.append(key)
     store.finalize(keys)
@@ -587,12 +603,12 @@ def main_path_phase(torch, seed: int, arch: str, store, paths):
             "mc_batch_ms": batch_ms,
             "mc_images_per_s": batch_size / batch_ms * 1e3,
             "fused_vs_unfused": {"mean_abs": mean_abs, "equal": equal},
-            "profile": profile_sweep(torch, sweep, arch),
+            "profile": profile_sweep(torch, sweep, f"one {arch} MC sweep"),
             "top5": [p.decode() for p in top]}
 
 
-def profile_sweep(torch, sweep, arch: str):
-    """Device time by kernel name over one MC sweep (torch.profiler)."""
+def profile_sweep(torch, sweep, label: str):
+    """Device time by kernel name over one call of ``sweep`` (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -615,8 +631,8 @@ def profile_sweep(torch, sweep, arch: str):
     ours = [{"kernel": k[:120], "device_ms": us / 1e3, "calls": n,
              "share": us / 1e3 / device_ms}
             for us, k, n in rows if "_argmax" in k and "_kernel" in k]
-    print("%s profile of one MC sweep: wall %.3f ms, device kernels %.3f ms" % (
-        arch, wall_ms, device_ms), flush=True)
+    print("profile of %s: wall %.3f ms, device kernels %.3f ms" % (
+        label, wall_ms, device_ms), flush=True)
     for r in top:
         print("  %9.3f ms %5d  %s" % (r["device_ms"], r["calls"], r["kernel"]))
     for r in ours:
@@ -624,6 +640,308 @@ def profile_sweep(torch, sweep, arch: str):
             r["device_ms"], r["calls"], 100 * r["share"], r["kernel"]))
     return {"wall_ms": wall_ms, "device_kernel_ms": device_ms, "top": top,
             "hand_written": ours}
+
+
+# ------------------------------------------------------- training and round
+
+# the canonical experiment's flags (test_scripts/cs_experiments_*.sh): crop
+# 513, batch 5, SGD lr 0.01 poly, balanced weights, bf16 by default; the
+# round is cut to 20 pool images, a 10-image seed set, 1 epoch, 2 rounds
+ROUND_ARGV = ["--dataset", "active_cityscapes_image", "--backbone", "mobilenet",
+              "--crop-size", "513", "--base-size", "513", "--batch-size", "5",
+              "--lr", "0.01", "--use-lr-scheduler", "--use-balanced-weights",
+              "--eval-interval", "1", "--epochs", "1", "--active-batch-size", "5",
+              "--max-iterations", "2", "--no-early-stop",
+              "--active-selection-mode", "variance", "--workers", "0"]
+SEED_SET = 10
+# the card the phases below run on (main() refuses to start without one)
+DEVICE = "cuda"
+VAL = 5
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+# card vs CPU, one step (TF32 off, dropout off, BN at running stats): the
+# loss to this relative gap, the updated parameters to this one (see
+# card_vs_cpu_phase)
+CPU_LOSS_RTOL = 1e-4
+CPU_PARAM_RTOL = 1e-3
+
+
+def write_dataset(root: Path, seed: int):
+    """The loop's dataset layout under ``root``: the POOL-record train
+    split, a VAL-record val split, and seed sets (the first SEED_SET
+    train images; all of them)."""
+    city = root / "cityscapes"
+    store, paths = write_store(city / "train", seed)
+    write_store(city / "val", seed + 1, n=VAL, split="val")
+    (city / "seed_sets").mkdir()
+    for name, keys in (("set_0.txt", paths[:SEED_SET]), ("set_all.txt", paths)):
+        (city / "seed_sets" / name).write_text(
+            "".join(k.decode() + "\n" for k in keys))
+    return store, paths
+
+
+def freeze_bn(model):
+    """Train mode with every BN layer at its running statistics."""
+    import torch
+
+    model.train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.eval()
+    return model
+
+
+def train_phase(torch, seed: int, root: Path):
+    """Full-width train steps in bf16 then f32 (TF32 on): device ms per
+    step on a device-resident batch, peak memory, every loss finite and
+    falling over the steps on that one batch; a Trainer epoch through the
+    port's Loader (host geometry included); the host geometry of one
+    batch; eval images/s and the eval step's confusion matrix against a
+    host bincount of the same predictions; a profile of one bf16 step."""
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+    from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import make_schedule
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_eval_step, make_train_step)
+    from deep_active_semantic_segmentation_torch.utils.class_weights import (
+        calculate_weights_labels)
+
+    cfg = parse_cli(ROUND_ARGV + ["--seed", str(seed), "--seed_set", "set_all.txt",
+                                  "--epochs", "200"]).finalize()
+    _, train_loader, val_loader, _, nclass = make_dataloader(
+        cfg.dataset, cfg.base_size, cfg.crop_size, cfg.batch_size,
+        init_set=cfg.seed_set, dataset_root=str(root), seed=seed,
+        rng=random.Random(seed), device=DEVICE)
+    t0 = time.perf_counter()
+    host_batch = next(iter(train_loader))
+    host_batch_s = time.perf_counter() - t0
+    cw = torch.as_tensor(calculate_weights_labels(train_loader, nclass),
+                         dtype=torch.float32, device=DEVICE)
+    batch = {k: torch.from_numpy(host_batch[k]).to(DEVICE) for k in ("image", "label")}
+    B = cfg.batch_size
+    out = {"host_geometry_s_per_batch": host_batch_s, "batch": B,
+           "crop": cfg.crop_size}
+    print(f"train host geometry of one batch (one thread): {host_batch_s:.3f} s",
+          flush=True)
+
+    for dtype in ("bfloat16", "float32"):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        model = build_model("deeplab", nclass, mc_dropout=True, device=DEVICE,
+                            generator=gen).train()
+        opt = build_optimizer("SGD", param_groups(model, "deeplab"), cfg)
+        ipe = len(train_loader)
+        step = make_train_step(model, opt, build_loss("ce", class_weights=cw),
+                               make_schedule("poly", cfg.lr, cfg.epochs, ipe),
+                               compute_dtype=dtype, generator=gen)
+        losses = [step(batch, i)["loss"] for i in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+            losses.append(step(batch, i)["loss"])
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / TRAIN_STEPS
+        losses = torch.stack(losses).tolist()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"train step {dtype}: {step_ms:.3f} ms per step of {B} at "
+              f"{cfg.crop_size} "
+              f"({B / step_ms * 1e3:.2f} images/s on a device-resident batch), "
+              f"peak memory {peak / 2**30:.3f} GiB, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}", flush=True)
+        check(bool(np.isfinite(losses).all()), f"{dtype} train losses finite")
+        check(losses[-1] < losses[0], f"{dtype} loss falls over {len(losses)} "
+                                      "steps on one batch")
+        out[dtype] = {"step_ms": step_ms, "images_per_s": B / step_ms * 1e3,
+                      "peak_bytes": peak, "losses": losses}
+        if dtype == "bfloat16":
+            out["profile_bf16_step"] = profile_sweep(
+                torch, lambda: step(batch, 0), "one bf16 train step")
+
+    # eval at crop 513: device-resident batch, confusion vs a host bincount
+    eval_step = make_eval_step(model, nclass, build_loss(
+        "ce", class_weights=cw, batch_average=False))
+    ev = eval_step(batch, B)
+    pred, lab = ev["pred"].cpu().numpy(), host_batch["label"].astype(np.int64)
+    valid = lab < nclass
+    host = np.bincount(nclass * lab[valid] + pred[valid],
+                       minlength=nclass * nclass).reshape(nclass, nclass)
+    check(np.array_equal(ev["confusion"].cpu().numpy(), host),
+          "eval confusion equals a host bincount of the same predictions")
+    eval_ms = cuda_ms(lambda: eval_step(batch, B), 20)
+    out["eval"] = {"step_ms": eval_ms, "images_per_s": B / eval_ms * 1e3}
+    print(f"eval step: {eval_ms:.3f} ms per batch of {B} "
+          f"({B / eval_ms * 1e3:.2f} images/s); confusion exact", flush=True)
+
+    # a Trainer epoch over the 20-image pool through the Loader: host
+    # geometry (one producer thread) overlapped with the bf16 steps
+    trainer = Trainer(cfg, train_loader, val_loader, nclass, device=DEVICE,
+                      rng=random.Random(seed))
+    trainer.initialize()
+    epochs = []
+    for epoch in range(2):   # the first one warms the pinned-memory pool
+        t0 = time.perf_counter()
+        trainer.training(epoch)
+        epochs.append(len(train_loader.pool) / (time.perf_counter() - t0))
+    out["loader_epoch_images_per_s"] = epochs[-1]
+    print(f"train epoch through the Loader: {epochs[-1]:.2f} images/s "
+          f"({len(train_loader.pool)} images, bf16, host geometry included)",
+          flush=True)
+    return out
+
+
+def card_vs_cpu_phase(torch, seed: int):
+    """One train step at 65 px, batch 2, from the same weights on the card
+    and on the CPU, TF32 off, dropout off, BN at running statistics; in
+    f32 (the uint8 wire), then with f64 weights and a host-normalized f64
+    image (the loss stays f32). The loss agrees within CPU_LOSS_RTOL. The
+    updated parameters: in f32 the largest difference over the model
+    within CPU_PARAM_RTOL of its largest weight (a zero-initialized bias
+    updated once holds only -lr * grad, and a BN bias's grad is a sum over
+    every pixel with much cancellation, which f32 summation order shifts
+    by far more than 1e-3 of itself); in f64 every tensor within
+    CPU_PARAM_RTOL of its own largest element."""
+    import copy
+
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import make_schedule
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import make_train_step
+
+    rng = np.random.RandomState(seed)
+    image = rng.randint(0, 256, (2, 65, 65, 3), dtype=np.uint8)
+    label = rng.randint(0, NUM_CLASSES, (2, 65, 65)).astype(np.uint8)
+    label[:, :6] = 255
+    cw = rng.uniform(0.5, 2.0, NUM_CLASSES).astype(np.float32)
+    images = {"float32": image,
+              "float64": ((image / 255.0 - np.array([0.485, 0.456, 0.406]))
+                          / np.array([0.229, 0.224, 0.225]))}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dtype in ("float32", "float64"):
+            cpu_model = build_model("deeplab", NUM_CLASSES, mc_dropout=True,
+                                    device="cpu",
+                                    generator=torch.Generator().manual_seed(seed))
+            cpu_model = cpu_model.to(getattr(torch, dtype))
+            models = {"cpu": cpu_model, DEVICE: copy.deepcopy(cpu_model).to(DEVICE)}
+            losses = {}
+            for dev, model in models.items():
+                freeze_bn(model)
+                opt = build_optimizer("SGD", param_groups(model, "deeplab"))
+                step = make_train_step(model, opt, build_loss(
+                    "ce", class_weights=torch.from_numpy(cw).to(dev)),
+                    make_schedule("poly", 0.01, 200, 4))
+                batch = {"image": torch.from_numpy(images[dtype]).to(dev),
+                         "label": torch.from_numpy(label).to(dev)}
+                losses[dev] = float(step(batch, 0)["loss"])
+            loss_rel = abs(losses[DEVICE] - losses["cpu"]) / abs(losses["cpu"])
+            card = dict(models[DEVICE].named_parameters())
+            per_tensor = sorted(
+                (((card[n].detach().cpu() - p.detach()).abs().max()
+                  / p.detach().abs().max().clamp_min(1e-30)).item(), n)
+                for n, p in models["cpu"].named_parameters())
+            model_rel = max((card[n].detach().cpu() - p.detach()).abs().max().item()
+                            for n, p in models["cpu"].named_parameters()) / max(
+                p.detach().abs().max().item() for p in models["cpu"].parameters())
+            print(f"card vs CPU, one {dtype} step at 65 px: loss {losses[DEVICE]:.9f} "
+                  f"vs {losses['cpu']:.9f} (rel {loss_rel:.2e}, bar {CPU_LOSS_RTOL}); "
+                  f"parameters: largest difference {model_rel:.2e} of the largest "
+                  f"weight; worst tensors {[(n, f'{r:.2e}') for r, n in per_tensor[-3:]]}"
+                  f" (bar {CPU_PARAM_RTOL})", flush=True)
+            check(loss_rel <= CPU_LOSS_RTOL, f"card and CPU {dtype} step losses agree")
+            worst = model_rel if dtype == "float32" else per_tensor[-1][0]
+            check(worst <= CPU_PARAM_RTOL,
+                  f"card and CPU {dtype} updated parameters agree")
+            out[dtype] = {"loss_card": losses[DEVICE], "loss_cpu": losses["cpu"],
+                          "loss_rel": loss_rel, "model_rel": model_rel,
+                          "worst_tensors": per_tensor[-3:]}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return out
+
+
+def al_round_phase(torch, seed: int, root: Path, paths):
+    """One whole AL round (and the next round's training) through
+    ``run_active_loop`` on the card, every launch count set to 0 just
+    before and read just after: selections 10 then 15, best.ckpt reloads
+    bit for bit, the selection ran on B1 (20 launches per scoring batch)
+    and not B2, and the scores of the remaining pool under round 0's
+    best.ckpt are finite and rank the loop's pick."""
+    from deep_active_semantic_segmentation_torch import constants
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.engine.active_loop import (
+        run_active_loop)
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.ops.entropy import mean_over_pixels
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+    from deep_active_semantic_segmentation_torch.selection.base import (
+        collect_scores, rank_descending)
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
+
+    cfg = parse_cli(ROUND_ARGV + ["--seed", str(seed), "--checkname", "round"]).finalize()
+    runs = root / "runs"
+    reset_counts()
+    t0 = time.perf_counter()
+    history = run_active_loop(cfg, dataset_root=str(root), runs_root=str(runs),
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    exp = runs / cfg.dataset / cfg.checkname
+    runs_dirs = sorted(d.name for d in exp.iterdir() if d.name.startswith("run_"))
+    sel = [(exp / d / "selections.txt").read_text().splitlines() for d in runs_dirs]
+    rounds = [history[k]["seconds"] for k in sorted(history)]
+    print(f"AL round through run_active_loop: {wall_s:.3f} s for 2 rounds; "
+          f"selections {[len(s) for s in sel]}; launches {json.dumps(counts)}; "
+          "round 0 train / validate / select s: "
+          f"{rounds[0]['train']:.3f} / {rounds[0]['validate']:.3f} / "
+          f"{rounds[0]['select']:.3f}; round 1 train / validate s: "
+          f"{rounds[1]['train']:.3f} / {rounds[1]['validate']:.3f}", flush=True)
+    check([len(s) for s in sel] == [SEED_SET, SEED_SET + cfg.active_batch_size],
+          f"selections.txt holds 10 then 15 lines: {[len(s) for s in sel]}")
+    check(sel[1][:SEED_SET] == sel[0], "round 1 keeps round 0's labeled set")
+    n_batches = -(-(POOL - SEED_SET) // cfg.batch_size)
+    check(counts["upsample4_argmax"] == constants.MC_STEPS * n_batches,
+          f"B1 launched {counts['upsample4_argmax']} times in the round, "
+          f"expected {constants.MC_STEPS * n_batches}")
+    check(counts["tconv2x_argmax_parity_major"] == 0, "no B2 launch in the round")
+
+    # best.ckpt reloads onto the card bit for bit
+    path = exp / runs_dirs[0] / "best.ckpt"
+    model = build_model("deeplab", NUM_CLASSES, mc_dropout=True, device=DEVICE)
+    payload = load_checkpoint(str(path), model, device=DEVICE)
+    on_file = torch.load(str(path), map_location="cpu", weights_only=True)["state_dict"]
+    check(all(torch.equal(model.state_dict()[k].cpu(), v) for k, v in on_file.items())
+          and payload["state_dict"].keys() == model.state_dict().keys(),
+          "best.ckpt reloads to the same tensors bit for bit")
+    # the scores the round ranked: finite, and their top 5 is the pick
+    store = DirectoryStore(str(root / "cityscapes" / "train"))
+    remaining = [p for p in paths if p.decode() not in set(sel[0])]
+    sel_obj = get_active_selection_class("variance", NUM_CLASSES, store,
+                                         cfg.crop_size, cfg.batch_size, device=DEVICE)
+    scorer = sel_obj._entropy_scorer(ModelBundle(model, torch.device(DEVICE)),
+                                     cfg.seed + 0)
+    scores = collect_scores(sel_obj._paths_loader(remaining, include_labels=True,
+                                                  labels_as_mask=NUM_CLASSES),
+                            lambda b: mean_over_pixels(scorer(b)))
+    check(len(scores) == len(remaining) and bool(np.isfinite(scores).all()),
+          "the round's scores are finite")
+    check([p.decode() for p in rank_descending(scores, remaining, cfg.active_batch_size)]
+          == sel[1][SEED_SET:], "the round picked the top 5 of its scores")
+    return {"wall_s": wall_s, "counts": counts, "selections": [len(s) for s in sel],
+            "rounds": [history[f] for f in sorted(history)],
+            "launches": counts["upsample4_argmax"]}
 
 
 def main(argv=None) -> int:
@@ -668,25 +986,42 @@ def main(argv=None) -> int:
     rows = [upsample_kernel_phase(torch, gen, old), tconv_kernel_phase(torch, gen, old)]
 
     tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
+    phase_s = {}
     try:
         t0 = time.perf_counter()
-        store, paths = write_store(tmp, args.seed)
+        store, paths = write_dataset(tmp, args.seed)
         store_s = time.perf_counter() - t0
-        paths_result = {arch: main_path_phase(torch, args.seed, arch, store, paths)
-                        for arch in PATHS}
+        paths_result = {}
+        for arch in PATHS:
+            t0 = time.perf_counter()
+            paths_result[arch] = main_path_phase(torch, args.seed, arch, store, paths)
+            phase_s[f"{arch}_query"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        training = train_phase(torch, args.seed, tmp)
+        phase_s["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        training["card_vs_cpu"] = card_vs_cpu_phase(torch, args.seed)
+        phase_s["card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        al_round = al_round_phase(torch, args.seed, tmp, paths)
+        phase_s["al_round"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
+          flush=True)
     for row in rows:
         row["launches"] = next(r["launches"] for r in paths_result.values()
                                if PATHS[r["arch"]]["kernel"] == row["name"])
         check(row["launches"] > 0, f"{row['name']} ran on its main path")
+        row["al_round_launches"] = al_round["counts"][row["name"]]
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "store_write_s": store_s,
-             "sass_tensor_ops": sass,
-             "kernels": rows, "main_paths": paths_result}, indent=1))
+             "sass_tensor_ops": sass, "phase_s": phase_s,
+             "kernels": rows, "main_paths": paths_result,
+             "training": training, "al_round": al_round}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}
                                   for row in rows]}), flush=True)

@@ -1,13 +1,13 @@
-"""Pool-scoring batches and the ordered host->device prefetch (own copy of
-the JAX package's data/loader.py ``PathsLoader`` and
-``prefetch_to_device``).
+"""Train/eval and pool-scoring batches and the ordered host->device
+prefetch (own copy of the JAX package's data/loader.py ``Loader``,
+``PathsLoader`` and ``prefetch_to_device``).
 
-Batches keep the JAX package's wire: NHWC uint8 images (geometry only on
-the host; the scoring kernels normalize on the device) and either the
-uint8 label plane or, with ``labels_as_mask``, the 1-bit valid predicate
-packed 8 pixels per byte. A final partial batch is padded to the full
-batch size with duplicates whose pixels are all invalid, and ``nvalid``
-counts the real samples.
+Batches keep the JAX package's uint8 wire: NHWC uint8 images (geometry
+only on the host; the steps and scoring kernels normalize on the device)
+and either the uint8 label plane or, with ``labels_as_mask``, the 1-bit
+valid predicate packed 8 pixels per byte. A final partial batch is padded
+to the full batch size with duplicates whose pixels are all invalid, and
+``nvalid`` counts the real samples.
 """
 
 from __future__ import annotations
@@ -17,8 +17,72 @@ import threading
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from deep_active_semantic_segmentation_torch.data import transforms as tr
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``; to a card through pinned memory
+    with a non-blocking copy (the pinned block is held until the copy is
+    done by PyTorch's caching host allocator)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class Loader:
+    """Iterates a pool's ``get_item`` as fixed-shape NHWC uint8 batches
+    (the JAX package's ``Loader``, reference DataLoader usage).
+
+    ``shuffle`` draws each epoch's order from ``np.random.RandomState(seed)``,
+    one stream for the loader's life: the AL loop keeps one train loader
+    for the whole run, so the order carries on from round to round. Final
+    partial batches are padded with 255-labelled duplicates. Iterating
+    yields host batches; ``device_batches`` puts them on ``device``."""
+
+    def __init__(self, pool, batch_size: int, shuffle: bool = False,
+                 seed: Optional[int] = None, device="cpu"):
+        self.pool = pool
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.device = torch.device(device)
+        self._rng = np.random.RandomState(seed if seed is not None else 0)
+
+    def __len__(self):
+        return (len(self.pool) + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[dict]:
+        n = len(self.pool)
+        order = np.arange(n)
+        if self.shuffle:
+            self._rng.shuffle(order)
+        for start in range(0, n, self.batch_size):
+            idx = order[start: start + self.batch_size]
+            samples = [self.pool.get_item(int(i)) for i in idx]
+            nvalid = len(samples)
+            while len(samples) < self.batch_size:
+                pad = dict(samples[0])
+                pad["label"] = np.full_like(samples[0]["label"], 255)
+                samples.append(pad)
+            image = np.stack([np.asarray(s["image"], np.uint8) for s in samples])
+            label = np.stack([np.asarray(s["label"], np.uint8) for s in samples])
+            yield {"image": image, "label": label, "nvalid": nvalid}
+
+    def device_batches(self) -> Iterator[dict]:
+        """One epoch with ``image`` and ``label`` on ``device``. One
+        producer thread runs the host geometry and starts each copy while
+        the consumer steps on the previous batch; one, so the transforms'
+        draws from the pool's ``random.Random`` keep their order."""
+        device = self.device
+
+        def put(batch):
+            return {"image": to_device(batch["image"], device),
+                    "label": to_device(batch["label"], device),
+                    "nvalid": batch["nvalid"]}
+
+        return prefetch_to_device(iter(self), put, depth=2, workers=1)
 
 
 class PathsLoader:

@@ -11,7 +11,8 @@ image path, the reference's LMDB wire format. Two backends are ported:
 Both share ``keys()``, ``get(key)``, ``put(key, arr)``, ``finalize(keys)``.
 ``get`` is safe to call from several threads at once (PathsLoader runs
 store reads inside its prefetch workers); ``put``/``finalize`` are
-single-threaded. ``LmdbStore`` is a later item (ROADMAP).
+single-threaded. ``CachingStore`` wraps either for ``--memory-hog``.
+``LmdbStore`` is a later item (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -84,3 +85,29 @@ class DirectoryStore:
             self._keys = [bytes(k) for k in keys]
         with open(os.path.join(self.root, self.INDEX), "wb") as f:
             pickle.dump(self._keys, f)
+
+
+class CachingStore:
+    """Memory-hog mode (the JAX package's ``CachingStore``): labeled paths
+    are preloaded by the pools and every other record is cached on first
+    read, so after one pool sweep the whole split is resident."""
+
+    def __init__(self, base):
+        self.base = base
+        self._cache: Dict[bytes, np.ndarray] = {}
+
+    def keys(self) -> List[bytes]:
+        return self.base.keys()
+
+    def preload(self, keys: Sequence[bytes]) -> None:
+        for k in keys:
+            if k not in self._cache:
+                self._cache[k] = np.asarray(self.base.get(k))
+
+    def get(self, key: bytes) -> np.ndarray:
+        hit = self._cache.get(key)
+        if hit is None:
+            # concurrent prefetch workers may race to fill the same key;
+            # setdefault publishes exactly one load
+            hit = self._cache.setdefault(key, np.asarray(self.base.get(key)))
+        return hit

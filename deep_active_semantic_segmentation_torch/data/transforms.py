@@ -1,8 +1,11 @@
-"""Scoring-geometry sample transforms with reference-exact numerics (own
-copy of the parts of the JAX package's data/transforms.py that pool
-scoring runs).
+"""Sample transforms with reference-exact numerics (own copy of the parts
+of the JAX package's data/transforms.py that pool scoring and training
+run).
 
-Samples are ``{'image': HxWxC, 'label': HxW}`` numpy arrays. Resizing
+Samples are ``{'image': HxWxC, 'label': HxW}`` numpy arrays. The random
+train transforms draw from an explicit ``random.Random`` that the pool
+passes in, the same draws in the same order as the JAX package's calls
+of the module-level ``random``: one seed gives one stream. Resizing
 reproduces the deprecated ``scipy.misc.imresize`` the reference depends
 on: uint8 arrays routed through PIL with the requested resample mode, the
 code path old scipy used, so results are bit-identical for uint8 inputs.
@@ -12,10 +15,12 @@ item of the port (ROADMAP); here PIL does every resize.
 
 from __future__ import annotations
 
+import random
 from typing import Tuple
 
 import numpy as np
 from PIL import Image
+from scipy.ndimage import gaussian_filter
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -52,6 +57,57 @@ def _center_crop_origin(oh: int, ow: int, crop: int) -> Tuple[int, int]:
     return int(round((ow - crop) / 2.0)), int(round((oh - crop) / 2.0))
 
 
+class ToUint8Wire:
+    """Terminal stage of the uint8 train/eval wire: the geometry stages'
+    uint8 image (cast back exactly where a stage produced an integer-valued
+    f32 buffer, ScaleWithPadding's letterbox) and uint8 label. The
+    /255-mean/std normalize runs on the device
+    (``parallel/steps.ingest``)."""
+
+    def __call__(self, sample):
+        return {"image": np.asarray(sample["image"]).astype(np.uint8),
+                "label": np.asarray(sample["label"]).astype(np.uint8)}
+
+
+class RandomHorizontalFlip:
+    """Reference custom_transforms.py:57-69; one draw from ``rng``."""
+
+    def __init__(self, rng: random.Random):
+        self.rng = rng
+
+    def __call__(self, sample):
+        img, mask = sample["image"], sample["label"]
+        if self.rng.random() < 0.5:
+            img = np.fliplr(img)
+            mask = np.fliplr(mask)
+        return {"image": img, "label": mask}
+
+
+class RandomGaussianBlur:
+    """Reference custom_transforms.py:88-97: with p=0.5 (one draw), blur
+    the uint8 image across ALL axes, channels included, with sigma ~
+    U(0,1) (a second draw)."""
+
+    def __init__(self, rng: random.Random):
+        self.rng = rng
+
+    def __call__(self, sample):
+        img, mask = sample["image"], sample["label"]
+        if self.rng.random() < 0.5:
+            img = gaussian_filter(img, sigma=self.rng.random())
+        return {"image": img, "label": mask}
+
+
+class Compose:
+    def __init__(self, transforms):
+        self.transforms = list(transforms)
+
+    def __call__(self, sample):
+        for t in self.transforms:
+            sample = t(sample)
+        return sample
+
+
 class FixScaleCrop:
     """Reference custom_transforms.py:138-166: short side -> crop_size,
     center crop."""
@@ -69,6 +125,21 @@ class FixScaleCrop:
         img = imresize(img, (oh, ow))[y1:y1 + cs, x1:x1 + cs]
         mask = imresize(mask, (oh, ow), "nearest")[y1:y1 + cs, x1:x1 + cs]
         return {"image": img, "label": mask}
+
+
+class Scale:
+    """Reference custom_transforms.py:169-190: short side -> base_size, no
+    crop."""
+
+    def __init__(self, base_size):
+        self.base_size = base_size
+
+    def __call__(self, sample):
+        img = np.asarray(sample["image"])
+        mask = np.asarray(sample["label"])
+        oh, ow = _short_side_dims(img.shape[1], img.shape[0], self.base_size)
+        return {"image": imresize(img, (oh, ow)),
+                "label": imresize(mask, (oh, ow), "nearest")}
 
 
 class FixScaleCropImageOnly:

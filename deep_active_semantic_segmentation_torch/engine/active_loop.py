@@ -1,0 +1,167 @@
+"""The outer active-learning loop (parity: the JAX package's
+engine/active_loop.py:29-278, itself the reference active_train.py
+:336-529): per-round fresh model, train with early stop, reload the best
+checkpoint, select, grow the pool; resume from selections; the
+active_loop/* scalars keyed by percent of data labeled.
+
+The host stream is one ``random.Random`` seeded with ``args.seed``; the
+pools' train transforms, the trainer's visualization pick and the
+random-mode scorer draw from it in the JAX package's order (which seeds
+the module-level ``random`` instead), so one seed gives both packages the
+same draws. Selection modes ported: ``random`` and ``variance`` on image
+datasets; every other mode raises, naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+from typing import Optional
+
+from deep_active_semantic_segmentation_torch import resolve_device
+from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
+from deep_active_semantic_segmentation_torch.selection import (
+    get_active_selection_class)
+from deep_active_semantic_segmentation_torch.utils.early_stop import (
+    EarlyStopChecker)
+from deep_active_semantic_segmentation_torch.utils.saver import Saver
+from deep_active_semantic_segmentation_torch.utils.summaries import (
+    TensorboardSummary)
+
+_NOT_PORTED = {
+    "variance_representative": "A10", "coreset": "A10",
+    "ceal_confidence": "A9", "ceal_margin": "A9", "ceal_entropy": "A9",
+    "ceal_fusion": "A9", "ceal_entropy_weakly_labeled": "A9",
+    "noise_image": "A11", "noise_feature": "A11", "noise_variance": "A11",
+    "accuracy_labels": "A13", "accuracy_eval": "A13",
+}
+
+
+def run_active_loop(args, dataset_root: Optional[str] = None,
+                    runs_root: Optional[str] = None, device=None) -> dict:
+    """Run the loop of ``args`` (a finalized ``ExperimentConfig``) on
+    ``device`` (the CUDA card by default). Returns ``{percent labeled:
+    {mIoU, Acc, Acc_class, FWIoU, seconds}}``: the round's best metrics,
+    and its wall seconds in ``train``, ``validate`` and ``select`` (the
+    best-checkpoint reload, the scoring and the pool update)."""
+    mode = args.active_selection_mode
+    if mode in _NOT_PORTED:
+        raise NotImplementedError(f"selection mode '{mode}' is not ported "
+                                  f"yet (ROADMAP {_NOT_PORTED[mode]})")
+    if mode not in ("random", "variance"):
+        raise NotImplementedError(mode)
+    device = resolve_device(device)
+    rng = random.Random(args.seed)
+
+    training_set, train_loader, val_loader, _, nclass = make_dataloader(
+        args.dataset, args.base_size, args.crop_size, args.batch_size,
+        args.workers, args.overfit, init_set=args.seed_set,
+        memory_hog=args.memory_hog, dataset_root=dataset_root,
+        seed=args.seed, rng=rng, device=device)
+    args.nclass = nclass
+
+    saver = Saver(args, runs_root=runs_root)
+    saver.save_experiment_config()
+    summary = TensorboardSummary(saver.experiment_dir)
+    writer = summary.create_summary()
+
+    active_selector = get_active_selection_class(
+        mode, nclass, training_set.store, args.crop_size, args.batch_size,
+        device=device)
+
+    total_iterations = min(
+        len(training_set.image_paths) // args.active_batch_size - 1,
+        args.max_iterations)
+
+    # resume: replay selections.txt into the pool (active_train.py:364-369)
+    if args.resume != 0 and args.resume_selections is not None:
+        seed_size = len(training_set)
+        with open(os.path.join(saver.experiment_dir,
+                               args.resume_selections)) as f:
+            paths = [x.strip().encode("ascii") for x in f.readlines()
+                     if x.strip()]
+        training_set.expand_training_set(paths[seed_size:])
+        assert len(training_set) == (
+            args.resume * args.active_batch_size + seed_size)
+
+    assert args.eval_interval <= args.epochs
+    assert args.epochs % args.eval_interval == 0
+
+    trainer = Trainer(args, train_loader, val_loader, nclass, device=device,
+                      runs_root=runs_root, rng=rng)
+    trainer.initialize()
+    history = {}
+
+    for selection_iter in range(args.resume, total_iterations):
+        print(f"ActiveIteration-{selection_iter:03d}/{total_iterations:03d}")
+        fraction = round(training_set.get_fraction_of_labeled_data() * 100)
+        trainer.setup_saver_and_summary(fraction,
+                                        training_set.current_image_paths)
+        training_set.make_dataset_multiple_of_batchsize(args.batch_size)
+        trainer.initialize()  # fresh model every round (active_train.py:394)
+
+        early_stop = None
+        if not args.no_early_stop:
+            early_stop = EarlyStopChecker(patience=5,
+                                          min_improvement=args.min_improvement)
+
+        best = dict(mIoU=0.0, Acc=0.0, Acc_class=0.0, FWIoU=0.0)
+        seconds = dict(train=0.0, validate=0.0, select=0.0)
+        train_loss = test_loss = 0.0
+        visualizations = None
+        for outer_epoch in range(args.epochs // args.eval_interval):
+            train_loss = 0.0
+            for inner_epoch in range(args.eval_interval):
+                epoch = outer_epoch * args.eval_interval + inner_epoch
+                t0 = time.perf_counter()
+                train_loss += trainer.training(epoch)
+                seconds["train"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            (test_loss, mIoU, Acc, Acc_class, FWIoU,
+             visualizations) = trainer.validation(epoch)
+            seconds["validate"] += time.perf_counter() - t0
+            best["mIoU"] = max(best["mIoU"], mIoU)
+            best["Acc"] = max(best["Acc"], Acc)
+            best["Acc_class"] = max(best["Acc_class"], Acc_class)
+            best["FWIoU"] = max(best["FWIoU"], FWIoU)
+            if early_stop is not None and early_stop(mIoU):
+                print(f"Early stopping triggered after {epoch} epochs")
+                break
+
+        training_set.reset_dataset()
+        history[fraction] = dict(best, seconds=seconds)
+
+        writer.add_scalar("active_loop/train_loss",
+                          train_loss / len(training_set), fraction)
+        writer.add_scalar("active_loop/val_loss", test_loss, fraction)
+        writer.add_scalar("active_loop/mIoU", best["mIoU"], fraction)
+        writer.add_scalar("active_loop/Acc", best["Acc"], fraction)
+        writer.add_scalar("active_loop/Acc_class", best["Acc_class"], fraction)
+        writer.add_scalar("active_loop/fwIoU", best["FWIoU"], fraction)
+        if visualizations is not None:
+            summary.visualize_image(writer, args.dataset, visualizations[0],
+                                    visualizations[1], visualizations[2],
+                                    len(training_set.current_image_paths))
+
+        if selection_iter == total_iterations - 1:
+            break
+
+        # -- selection (active_train.py:440-466) --
+        t0 = time.perf_counter()
+        trainer.load_best_checkpoint()
+        if mode == "random":
+            selected = active_selector.get_random_uncertainity(
+                training_set.remaining_image_paths, args.active_batch_size,
+                rng=rng)
+        else:
+            print("Calculating entropies..")
+            selected = active_selector.get_vote_entropy_for_images(
+                trainer.bundle, training_set.remaining_image_paths,
+                args.active_batch_size, seed=args.seed + selection_iter)
+        training_set.expand_training_set(selected)
+        seconds["select"] = time.perf_counter() - t0
+
+    writer.close()
+    return history

@@ -1,0 +1,217 @@
+"""The trainer of the AL loop (parity: the JAX package's engine/trainer.py
+:44, itself the reference active_train.py:27-194).
+
+A fresh model and optimizer at every ``initialize()`` (one per AL round),
+per-epoch training and validation with the reference's scalar tag schema,
+best-checkpoint saving and reloading. Per-iteration losses stay on the
+device during an epoch and are fetched once at its end; validation
+accumulates the confusion matrix on the device.
+
+Every random draw has an explicit source: the weight init and the dropout
+masks come from one ``torch.Generator`` on the trainer's device, seeded
+with ``args.seed`` and carried on from round to round; the validation's
+visualization pick draws from the host stream ``rng`` (a
+``random.Random``), the one the pools' train transforms draw from, in the
+JAX package's order.
+
+Not ported yet, each raising and naming its ROADMAP item: the two-headed
+accuracy predictor (``dual_head``, A13), ENet training (A12) and the
+pretrained-backbone transplant (A14).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+from typing import Optional
+
+import torch
+
+from deep_active_semantic_segmentation_torch import resolve_device
+from deep_active_semantic_segmentation_torch.models.factory import (
+    build_model, param_groups)
+from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
+    constant_schedule, make_schedule)
+from deep_active_semantic_segmentation_torch.ops.metrics import Evaluator
+from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+from deep_active_semantic_segmentation_torch.parallel.steps import (
+    make_eval_step, make_train_step)
+from deep_active_semantic_segmentation_torch.selection.base import ModelBundle
+from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
+from deep_active_semantic_segmentation_torch.utils.class_weights import (
+    calculate_weights_labels)
+from deep_active_semantic_segmentation_torch.utils.saver import (
+    BEST_NAME, ActiveSaver)
+from deep_active_semantic_segmentation_torch.utils.summaries import (
+    TensorboardSummary)
+
+
+class Trainer:
+    def __init__(self, args, train_loader, val_loader, nclass: int,
+                 device=None, dual_head: bool = False,
+                 runs_root: Optional[str] = None,
+                 rng: Optional[random.Random] = None):
+        if dual_head:
+            raise NotImplementedError("the two-headed accuracy predictor is "
+                                      "not ported yet (ROADMAP A13)")
+        if args.architecture != "deeplab":
+            raise NotImplementedError(
+                f"training '{args.architecture}' is not ported yet (ROADMAP "
+                f"{'A12' if args.architecture == 'enet' else 'A14'})")
+        if args.pretrained and args.pretrained_weights:
+            raise NotImplementedError("the pretrained-backbone transplant is "
+                                      "not ported yet (ROADMAP A14)")
+        self.args = args
+        self.device = resolve_device(device)
+        for loader in (train_loader, val_loader):
+            if loader.device != self.device:
+                raise ValueError(f"loader puts batches on {loader.device}, "
+                                 f"the trainer runs on {self.device}")
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.nclass = nclass
+        self.runs_root = runs_root
+        self.rng = rng if rng is not None else random.Random(args.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            args.seed if args.seed >= 0 else 0)
+        self.writer = None
+        self.saver = None
+        self._class_weights = None
+
+    # -- saver / summary (active_train.py:34-40) --
+    def setup_saver_and_summary(self, num_current_labeled_samples, samples):
+        self.num_current_labeled_samples = num_current_labeled_samples
+        self.saver = ActiveSaver(self.args, num_current_labeled_samples,
+                                 runs_root=self.runs_root)
+        self.saver.save_experiment_config()
+        self.saver.save_active_selections(samples)
+        self.summary = TensorboardSummary(self.saver.experiment_dir)
+        self.writer = self.summary.create_summary()
+
+    # -- model/optimizer construction (active_train.py:42-87) --
+    def initialize(self):
+        args = self.args
+        self.model = build_model(args.architecture, self.nclass,
+                                 backbone=args.backbone,
+                                 output_stride=args.out_stride,
+                                 mc_dropout=args.mc_dropout,
+                                 device=self.device, generator=self.generator)
+        self.optimizer = build_optimizer(
+            args.optimizer, param_groups(self.model, args.architecture), args)
+
+        if args.use_balanced_weights and self._class_weights is None:
+            print("Calculating class weights..")
+            self._class_weights = torch.as_tensor(
+                calculate_weights_labels(self.train_loader, self.nclass),
+                dtype=torch.float32, device=self.device)
+
+        # the round's schedule geometry, read after the pool is padded to
+        # a batch multiple
+        ipe = max(len(self.train_loader), 1)
+        self._geometry = (args.epochs * ipe, ipe)
+        if args.use_lr_scheduler:
+            schedule = make_schedule(args.lr_scheduler, args.lr, args.epochs,
+                                     ipe, lr_step=args.lr_step)
+        else:
+            schedule = constant_schedule(args.lr)
+        self.train_step = make_train_step(
+            self.model, self.optimizer,
+            build_loss(args.loss_type, class_weights=self._class_weights),
+            schedule, compute_dtype=args.dtype, generator=self.generator,
+            remat=args.remat)
+        self.eval_step = make_eval_step(
+            self.model, self.nclass,
+            build_loss(args.loss_type, class_weights=self._class_weights,
+                       batch_average=False))
+        self.step = 0
+        self.evaluator = Evaluator(self.nclass, self.device)
+        self.best_pred = 0.0
+
+    @property
+    def bundle(self) -> ModelBundle:
+        return ModelBundle(self.model, self.device)
+
+    def load_best_checkpoint(self):
+        """Reload best.ckpt onto the trainer's device before selection
+        (active_train.py:440-441)."""
+        path = os.path.join(self.saver.experiment_dir, BEST_NAME)
+        payload = load_checkpoint(path, self.model, self.optimizer, self.device)
+        self.step = payload["step"]
+
+    def _save(self, epoch: int, is_best: bool):
+        self.saver.save_checkpoint(self.model, self.optimizer, epoch + 1,
+                                   self.best_pred, is_best=is_best,
+                                   step=self.step)
+
+    # -- one training epoch (active_train.py:89-127) --
+    def training(self, epoch: int) -> float:
+        num_img_tr = len(self.train_loader)
+        self.model.train()
+        device_losses, lrs = [], []
+        epoch_start = time.perf_counter()
+        n_images = 0
+        for batch in self.train_loader.device_batches():
+            n_images += batch["nvalid"]
+            out = self.train_step(batch, self.step, *self._geometry)
+            self.step += 1
+            device_losses.append(out["loss"])
+            lrs.append(out["lr"])
+        losses = torch.stack(device_losses).tolist() if device_losses else []
+        train_loss = 0.0
+        for i, (loss, lr) in enumerate(zip(losses, lrs)):
+            train_loss += loss
+            if self.writer is not None:
+                self.writer.add_scalar("train/total_loss_iter", loss,
+                                       i + num_img_tr * epoch)
+                if self.args.use_lr_scheduler:
+                    self.writer.add_scalar("train/learning_rate", lr,
+                                           i + num_img_tr * epoch)
+        # the losses' fetch above waited for the card: the clock is honest
+        imgs_per_sec = n_images / max(time.perf_counter() - epoch_start, 1e-9)
+        if self.writer is not None:
+            self.writer.add_scalar("train/total_loss_epoch", train_loss, epoch)
+            self.writer.add_scalar("train/imgs_per_sec", imgs_per_sec, epoch)
+        print(f"[Epoch: {epoch}] Loss: {train_loss:.3f} "
+              f"BestPred: {self.best_pred:.3f} "
+              f"({imgs_per_sec:.1f} imgs/s)")
+        if self.args.no_val and self.saver is not None:
+            self._save(epoch, is_best=False)
+        return train_loss
+
+    # -- validation (active_train.py:129-194) --
+    def validation(self, epoch: int):
+        self.evaluator.reset()
+        visualization_index = int(self.rng.random() * len(self.val_loader))
+        vis = None
+        device_losses = []
+        for i, batch in enumerate(self.val_loader.device_batches()):
+            out = self.eval_step(batch, batch["nvalid"])
+            device_losses.append(out["loss"])
+            self.evaluator.add_matrix(out["confusion"])
+            if i == visualization_index:
+                vis = [batch["image"], batch["label"], out["pred"]]
+        test_loss = 0.0
+        for loss in torch.stack(device_losses).tolist():
+            test_loss += loss
+
+        Acc = self.evaluator.Pixel_Accuracy()
+        Acc_class = self.evaluator.Pixel_Accuracy_Class()
+        mIoU = self.evaluator.Mean_Intersection_over_Union()
+        FWIoU = self.evaluator.Frequency_Weighted_Intersection_over_Union()
+        if self.writer is not None:
+            self.writer.add_scalar("val/total_loss_epoch", test_loss, epoch)
+            self.writer.add_scalar("val/mIoU", mIoU, epoch)
+            self.writer.add_scalar("val/Acc", Acc, epoch)
+            self.writer.add_scalar("val/Acc_class", Acc_class, epoch)
+            self.writer.add_scalar("val/fwIoU", FWIoU, epoch)
+        print(f"Validation: [Epoch: {epoch}] Acc:{Acc}, Acc_class:{Acc_class},"
+              f" mIoU:{mIoU}, fwIoU: {FWIoU} Loss: {test_loss:.3f}")
+
+        is_best = mIoU > self.best_pred
+        if is_best:
+            self.best_pred = mIoU
+        if self.saver is not None:
+            self._save(epoch, is_best)
+        return test_loss, mIoU, Acc, Acc_class, FWIoU, vis

@@ -41,3 +41,16 @@ def build_model(architecture: str, num_classes: int, backbone: str = "mobilenet"
         generator = torch.Generator(device=device).manual_seed(0)
     init_weights(model, generator)
     return model.eval()
+
+
+def param_groups(model: torch.nn.Module, architecture: str):
+    """Optimizer parameter groups with the reference's learning-rate
+    multipliers (deeplab.get_1x_lr_params / get_10x_lr_params,
+    deeplab.py:71-89; the JAX package's ``lr_multiplier_tree``): for
+    DeepLab the backbone at 1x and ASPP + decoder at 10x; one 1x group
+    for every other model. ``parallel/optim.set_lr`` reads ``lr_mult``."""
+    if architecture == "deeplab":
+        return [{"params": list(model.backbone.parameters()), "lr_mult": 1.0},
+                {"params": list(model.aspp.parameters())
+                 + list(model.decoder.parameters()), "lr_mult": 10.0}]
+    return [{"params": list(model.parameters()), "lr_mult": 1.0}]

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from deep_active_semantic_segmentation_torch import resolve_device
+from deep_active_semantic_segmentation_torch.data.loader import (
+    PathsLoader, prefetch_to_device, to_device)
 
 # Compute dtype for the MC vote-entropy forwards. Votes are per-pixel
 # argmaxes, robust to bf16 rounding next to the MC sampling noise itself.
@@ -32,16 +34,6 @@ def mc_scoring_dtype() -> str:
 class ModelBundle:
     model: torch.nn.Module
     device: torch.device
-
-
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``device``; to a card through pinned memory
-    with a non-blocking copy (the pinned block is held until the copy is
-    done by PyTorch's caching host allocator)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 class ActiveSelectionBase:
@@ -64,9 +56,6 @@ class ActiveSelectionBase:
 
     def _paths_loader(self, images, include_labels=True,
                       labels_as_mask=None):
-        from deep_active_semantic_segmentation_torch.data.loader import (
-            PathsLoader, prefetch_to_device)
-
         loader = PathsLoader(self.store, images, self.crop_size,
                              self.dataloader_batch_size,
                              include_labels=include_labels,

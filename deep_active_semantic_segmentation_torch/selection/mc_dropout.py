@@ -26,10 +26,13 @@ class ActiveSelectionMCDropout(ActiveSelectionBase):
                          device=device, mc_dtype=mc_dtype)
         self.dataset_num_classes = dataset_num_classes
 
-    def get_random_uncertainity(self, images, selection_count):
+    def get_random_uncertainity(self, images, selection_count, rng=None):
         """Random baseline (mc_dropout.py:23-28): python random scores +
-        the same stable sort as every other ranker."""
-        scores = [random.random() for _ in range(len(images))]
+        the same stable sort as every other ranker. The scores come from
+        ``rng`` (a ``random.Random``; the AL loop passes its host stream),
+        else from the module-level ``random``."""
+        draw = (rng or random).random
+        scores = [draw() for _ in range(len(images))]
         return rank_descending(scores, images, selection_count)
 
     def _entropy_scorer(self, bundle: ModelBundle, seed: int):

@@ -1,0 +1,79 @@
+"""Tensorboard summaries (parity: the JAX package's utils/summaries.py,
+itself the reference utils/summaries.py:11-67): the same writer factory,
+scalar tag schema and Image / Prediction / Groundtruth grids.
+tensorboardX is optional: without it a JSONL writer keeps the scalar
+schema (tag, value, step), so a run on a machine without it still logs
+everything. Images are NHWC uint8 wire batches; targets and predictions
+(B, H, W) class maps, as numpy arrays or tensors on any device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from deep_active_semantic_segmentation_torch.data.colormaps import (
+    map_segmentations_to_colors)
+
+try:
+    from tensorboardX import SummaryWriter
+
+    HAVE_TBX = True
+except ImportError:  # pragma: no cover
+    HAVE_TBX = False
+
+
+class JsonlWriter:
+    """Fallback scalar writer with the tensorboard API subset used."""
+
+    def __init__(self, log_dir):
+        os.makedirs(log_dir, exist_ok=True)
+        self._f = open(os.path.join(log_dir, "scalars.jsonl"), "a")
+
+    def add_scalar(self, tag, value, step):
+        self._f.write(json.dumps({"tag": tag, "value": float(value),
+                                  "step": float(step)}) + "\n")
+        self._f.flush()
+
+    def add_image(self, tag, img, step):
+        pass
+
+    def close(self):
+        self._f.close()
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def _grid(images_nhwc: np.ndarray) -> np.ndarray:
+    """Horizontal grid, CHW float in [0,1] (torchvision make_grid analog)."""
+    row = np.concatenate(list(images_nhwc), axis=1)
+    return np.transpose(row, (2, 0, 1))
+
+
+class TensorboardSummary:
+    def __init__(self, directory):
+        self.directory = directory
+
+    def create_summary(self):
+        if HAVE_TBX:
+            return SummaryWriter(log_dir=self.directory)
+        return JsonlWriter(self.directory)
+
+    def visualize_image(self, writer, dataset, image, target, output,
+                        global_step, prefix="val"):
+        """image (B,H,W,3) uint8; target and output (B,H,W) class maps."""
+        image = _host(image)[:3]
+        target = _host(target)[:3]
+        pred = _host(output)[:3]
+        writer.add_image(f"{prefix}/Image",
+                         _grid(image.astype(np.float32) / 255.0), global_step)
+        writer.add_image(f"{prefix}/Prediction",
+                         _grid(map_segmentations_to_colors(
+                             pred.astype(np.uint8), dataset)), global_step)
+        writer.add_image(f"{prefix}/Groundtruth",
+                         _grid(map_segmentations_to_colors(
+                             target.astype(np.uint8), dataset)), global_step)

@@ -1,4 +1,5 @@
-"""Tests of the port's CUDA kernels, which run only on an NVIDIA card.
+"""Tests of the port that run only on an NVIDIA card: its CUDA kernels,
+and its train and eval steps with their state on the card.
 
 Each is marked ``cuda`` and skips, with a reason, where torch finds no
 card. This file imports neither JAX nor the JAX package, so it also runs
@@ -131,3 +132,57 @@ def test_enet_mc_sweep_launches_the_kernel_every_step(cuda_device):
         assert tv.tconv2x_argmax_parity_major.launches - before == (6 if fused else 0)
     assert maps[True].shape == (2, 64, 64)
     assert (maps[True] - maps[False]).abs().mean().item() < 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_and_eval_steps_run_on_the_card(cuda_device, dtype):
+    """A train step and an eval step with the model, optimizer state,
+    batch and every result on the card."""
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import make_schedule
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_eval_step, make_train_step)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = build_model("deeplab", 19, mc_dropout=True, device=cuda_device,
+                        generator=gen).train()
+    opt = build_optimizer("SGD", param_groups(model, "deeplab"))
+    cw = torch.rand(19, device=cuda_device, generator=gen) + 0.5
+    step = make_train_step(model, opt, build_loss("ce", class_weights=cw),
+                           make_schedule("poly", 0.01, 2, 3), compute_dtype=dtype,
+                           generator=gen)
+    batch = {"image": torch.randint(0, 256, (2, 65, 65, 3), dtype=torch.uint8,
+                                    device=cuda_device, generator=gen),
+             "label": torch.randint(0, 19, (2, 65, 65), dtype=torch.uint8,
+                                    device=cuda_device, generator=gen)}
+    out = step(batch, 0)
+    assert out["loss"].device.type == "cuda" and torch.isfinite(out["loss"])
+    assert all(st["momentum_buffer"].device.type == "cuda"
+               for st in opt.state.values())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    ev = make_eval_step(model, 19, build_loss("ce", class_weights=cw,
+                                              batch_average=False))(batch, 2)
+    assert not model.training
+    assert all(v.device.type == "cuda" for v in ev.values())
+    assert int(ev["confusion"].sum()) == 2 * 65 * 65
+
+
+@pytest.mark.cuda
+def test_bincount_confusion_equals_the_hosts(cuda_device):
+    import numpy as np
+
+    from deep_active_semantic_segmentation_torch.ops.metrics import confusion_matrix
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    gt = torch.randint(0, 21, (5, 513, 513), device=cuda_device, generator=gen)
+    gt[:, :40] = 255
+    pred = torch.randint(0, 19, (5, 513, 513), device=cuda_device, generator=gen)
+    got = confusion_matrix(gt, pred, 19).cpu().numpy()
+    g, p = gt.cpu().numpy(), pred.cpu().numpy()
+    valid = g < 19
+    ref = np.bincount(19 * g[valid] + p[valid], minlength=19 * 19).reshape(19, 19)
+    np.testing.assert_array_equal(got, ref)

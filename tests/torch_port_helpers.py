@@ -110,18 +110,6 @@ def port_enet(params, stats, num_classes: int = NUM_CLASSES, **relu):
     return model.eval()
 
 
-def port_deeplab(params, stats, num_classes: int = NUM_CLASSES):
-    """The port's DeepLab (CPU, eval mode) holding the JAX weights."""
-    from deep_active_semantic_segmentation_torch.models.convert import (
-        flax_to_deeplab_state_dict)
-    from deep_active_semantic_segmentation_torch.models.deeplab import DeepLab
-
-    model = DeepLab(num_classes=num_classes, backbone="mobilenet",
-                    output_stride=16, mc_dropout=True)
-    model.load_state_dict(flax_to_deeplab_state_dict(params, stats))
-    return model.eval()
-
-
 def write_pool(store, n: int, seed: int, hw=(40, 90)):
     """``n`` RGB+label records of size ``hw`` into ``store``: random pixels,
     blocky labels with a void (255) band. Returns the keys."""
@@ -136,20 +124,3 @@ def write_pool(store, n: int, seed: int, hw=(40, 90)):
         keys.append(key)
     store.finalize(keys)
     return keys
-
-
-def write_pool(store, n: int, seed: int, hw=(40, 90)):
-    """``n`` RGB+label records of size ``hw`` into ``store``: random pixels,
-    blocky labels with a void (255) band. Returns the keys."""
-    rng = np.random.RandomState(seed)
-    keys = []
-    for i in range(n):
-        img = rng.randint(0, 256, hw + (3,), dtype=np.uint8)
-        lab = rng.randint(0, NUM_CLASSES, hw).astype(np.uint8)
-        lab[: rng.randint(1, hw[0] // 3)] = 255
-        key = f"/leftImg8bit/train/city/img_{i:03d}.png".encode()
-        store.put(key, np.dstack((img, lab)))
-        keys.append(key)
-    store.finalize(keys)
-    return keys
-
