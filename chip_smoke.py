@@ -45,7 +45,25 @@
    after: selections 10 then 15, best.ckpt reloads bit for bit, B1 20
    launches per scoring batch and no B2, finite scores whose top 5 is the
    pick; the round's seconds in train, validate and select.
-7. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+7. Region selection, each with its launch counts set to 0 just before
+   and read just after: two rounds of `variance` on
+   active_cityscapes_region (region 129, 80 boxes requested, the whole
+   pool scored through B1: 80 launches, no B2), its selections.txt in the
+   JAX format, the labeled pixels grown by count * 129², its boxes equal
+   to the device and the host NMS on the re-scored normalized maps; one
+   region query at pa_experiments_06t-09t.sh's geometry (20 synthetic
+   375x500 Pascal records, base 512, crop -1, 21 classes: unfused, no B1
+   or B2 launch), device boxes equal to host ones; the square NMS at the
+   canonical pool size ((2975, 385, 385) f32, 791 boxes), device boxes
+   equal to host ones, its ms and peak memory, and the box sum of one
+   batch of 5 maps at 513².
+8. Two rounds of `ceal_entropy_weakly_labeled` through run_active_loop:
+   no B1 or B2 launch, round 1's train pool labeled + weak, weak targets
+   255 exactly where the mask is invalid, the pick equal to the top 5 of
+   the re-scored entropies; then the confidence, margin and fusion
+   queries on round 0's best.ckpt against a re-score, and the CEAL query
+   images/s.
+9. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -56,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import random
 import shutil
 import subprocess
@@ -473,9 +492,12 @@ def tconv_kernel_phase(torch, gen, old=None):
 
 # --------------------------------------------------------------- main path
 
-def write_store(root: Path, seed: int, n: int = POOL, split: str = "train"):
-    """``n`` Cityscapes-sized (1024x2048) RGB+label records from ``seed``;
-    labels are blocky class maps with void (255) bands, as Cityscapes
+def write_store(root: Path, seed: int, n: int = POOL, split: str = "train",
+                hw=(1024, 2048), block: int = 64, num_classes: int = NUM_CLASSES,
+                void=(40, 120)):
+    """``n`` RGB+label records of size ``hw`` (Cityscapes-sized by default)
+    from ``seed``; labels are blocky class maps (``block``-pixel cells)
+    with void (255) bands of ``void`` rows, as Cityscapes and Pascal VOC
     labels are."""
     from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
 
@@ -483,10 +505,10 @@ def write_store(root: Path, seed: int, n: int = POOL, split: str = "train"):
     store = DirectoryStore(str(root), readonly=False)
     keys = []
     for i in range(n):
-        img = rng.randint(0, 256, (1024, 2048, 3), dtype=np.uint8)
-        lab = np.kron(rng.randint(0, NUM_CLASSES, (16, 32)),
-                      np.ones((64, 64), np.int64)).astype(np.uint8)
-        lab[:rng.randint(40, 120)] = 255
+        img = rng.randint(0, 256, hw + (3,), dtype=np.uint8)
+        lab = np.kron(rng.randint(0, num_classes, (hw[0] // block, hw[1] // block)),
+                      np.ones((block, block), np.int64)).astype(np.uint8)
+        lab[:rng.randint(*void)] = 255
         key = f"/leftImg8bit/{split}/city/city_{i:06d}_leftImg8bit.png".encode()
         store.put(key, np.dstack((img, lab)))
         keys.append(key)
@@ -944,6 +966,417 @@ def al_round_phase(torch, seed: int, root: Path, paths):
             "launches": counts["upsample4_argmax"]}
 
 
+# ------------------------------------------------- region selection and CEAL
+
+# region rounds: the canonical flags on active_cityscapes_region at the
+# config's default region 129: ceil(5 * 513² / 129²) = 80 boxes requested
+REGION = 129
+REGION_ARGV = ROUND_ARGV + ["--dataset", "active_cityscapes_region",
+                            "--active-region-size", str(REGION)]
+# a CEAL weak-label round; the threshold sits above log2(19) = 4.25 bits, the
+# largest entropy, so every remaining image but the picks is weakly labeled
+CEAL_ARGV = ROUND_ARGV + ["--active-selection-mode", "ceal_entropy_weakly_labeled",
+                          "--weak-label-entropy-threshold", "5.0"]
+# timed runs of the CEAL entropy query over the pool (median and spread)
+CEAL_QUERY_RUNS = 5
+# the canonical region round's NMS: the 2975-image Cityscapes train split,
+# box-sum maps at crop 513 (385²), ceil(50 * 513² / 129²) = 791 boxes
+NMS_POOL, NMS_SIDE, NMS_BOXES = 2975, 513 - REGION + 1, 791
+# pa_experiments_06t-09t.sh: Pascal VOC letterboxed to 512 (crop -1), 21
+# classes; records the size of a VOC image
+PASCAL_HW, PASCAL_CLASSES = (375, 500), 21
+
+
+class spy_on:
+    """Wrap ``cls.name`` for the length of a ``with`` block: after each
+    call, ``after(obj, pixels_before, *args)`` runs, ``pixels_before``
+    being the pool's labeled-pixel count before the call."""
+
+    def __init__(self, cls, name, after):
+        self.cls, self.name, self.after = cls, name, after
+
+    def __enter__(self):
+        real = self.real = getattr(self.cls, self.name)
+
+        def wrapper(obj, *args):
+            pixels_before = obj.labeled_pixel_count
+            result = real(obj, *args)
+            self.after(obj, pixels_before, *args)
+            return result
+        setattr(self.cls, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.real)
+
+
+def read_selections(exp: Path):
+    """{run dir: [(path, [(r, c, h, w), ...]), ...]} of a loop's
+    selections.txt files, each line checked for the JAX package's format
+    (``path`` or ``path,r,c,h,w[,r,c,h,w...]``)."""
+    out = {}
+    for d in sorted(p for p in exp.iterdir() if p.name.startswith("run_")):
+        rows = []
+        for line in (d / "selections.txt").read_text().splitlines():
+            path, *nums = line.split(",")
+            check(len(nums) % 4 == 0 and all(x.isdigit() for x in nums),
+                  f"selections line in the JAX format: {line[:80]}")
+            nums = [int(x) for x in nums]
+            rows.append((path, [tuple(nums[i:i + 4]) for i in range(0, len(nums), 4)]))
+        out[d.name] = rows
+    return out
+
+
+def nms_device_vs_host(torch, norm, region_size: int, count: int):
+    """(device regions, host regions, device ms) of one NMS over ``norm``
+    (N, S, S) on the card, which it modifies in place; the host NMS runs on
+    a copy of the same maps, taken before."""
+    from deep_active_semantic_segmentation_torch.ops import region as region_ops
+
+    host_maps = norm.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    boxes, k = region_ops.square_nms_device(norm, region_size, count)
+    k = int(k)                                 # the one wait for the card
+    device_ms = (time.perf_counter() - t0) * 1e3
+    dev = region_ops.device_boxes_to_regions(boxes.cpu().numpy(), k,
+                                             norm.shape[0], region_size)
+    host = region_ops.square_nms(host_maps, region_size, count)
+    return dev, host, device_ms
+
+
+def region_round_phase(torch, seed: int, root: Path, paths):
+    """Two rounds of ``variance`` on ``active_cityscapes_region`` through
+    ``run_active_loop``, launch counts set to 0 just before and read just
+    after: B1 20 launches per scoring batch over the whole pool (4
+    batches), no B2; selections.txt in the JAX format with the seed images'
+    whole boxes; the labeled pixels grow by count * 129²; the loop's boxes
+    equal the device NMS and the host NMS on the same normalized maps,
+    re-scored from round 0's best.ckpt with the loop's seed."""
+    from deep_active_semantic_segmentation_torch import constants
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data import pools
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.engine.active_loop import (
+        run_active_loop)
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.ops import region as region_ops
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+    from deep_active_semantic_segmentation_torch.selection.region_pipeline import (
+        region_score_maps)
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
+
+    cfg = parse_cli(REGION_ARGV + ["--seed", str(seed), "--checkname", "region"]).finalize()
+    crop = cfg.crop_size
+    requested = math.ceil(cfg.active_batch_size * crop ** 2 / REGION ** 2)
+    grown = []
+    with spy_on(pools.ActiveRegionPool, "expand_training_set",
+                lambda pool, before, regions, pixels: grown.append(
+                    (before, pool.labeled_pixel_count,
+                     sum(len(v) for v in regions.values())))):
+        reset_counts()
+        t0 = time.perf_counter()
+        history = run_active_loop(cfg, dataset_root=str(root),
+                                  runs_root=str(root / "runs"), device=DEVICE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+    rounds = [history[k]["seconds"] for k in sorted(history)]
+    sel = list(read_selections(root / "runs" / cfg.dataset / cfg.checkname).values())
+    n_boxes = [sum(len(b) for _, b in rows) for rows in sel]
+    count = n_boxes[1] - n_boxes[0]
+    print(f"region round through run_active_loop: {wall_s:.3f} s for 2 rounds; "
+          f"boxes {count} of {requested} requested; launches {json.dumps(counts)}; "
+          "round 0 train / validate / select s: "
+          f"{rounds[0]['train']:.3f} / {rounds[0]['validate']:.3f} / "
+          f"{rounds[0]['select']:.3f}; round 1 train / validate s: "
+          f"{rounds[1]['train']:.3f} / {rounds[1]['validate']:.3f}", flush=True)
+    n_batches = -(-POOL // cfg.batch_size)
+    check(counts["upsample4_argmax"] == constants.MC_STEPS * n_batches,
+          f"B1 launched {counts['upsample4_argmax']} times in the region round, "
+          f"expected {constants.MC_STEPS * n_batches} (the whole pool is scored)")
+    check(counts["tconv2x_argmax_parity_major"] == 0, "no B2 launch in the region round")
+    check(sel[0] == [(p, [(0, 0, crop, crop)]) for p, _ in sel[0]]
+          and len(sel[0]) == SEED_SET, "round 0 holds the seed images' whole boxes")
+    check([p for p, _ in sel[1][:SEED_SET]] == [p for p, _ in sel[0]],
+          "round 1 keeps round 0's images first")
+    check(1 <= count <= requested, f"{count} boxes of {requested}")
+    check(len(grown) == 1 and grown[0][2] == count
+          and grown[0][1] - grown[0][0] == count * REGION ** 2,
+          f"labeled pixels grew by count * {REGION}²: {grown}")
+
+    # the same normalized maps re-scored from round 0's best.ckpt
+    model = build_model("deeplab", NUM_CLASSES, mc_dropout=True, device=DEVICE)
+    exp = root / "runs" / cfg.dataset / cfg.checkname
+    load_checkpoint(str(sorted(exp.glob("run_*"))[0] / "best.ckpt"), model, device=DEVICE)
+    store = DirectoryStore(str(root / "cityscapes" / "train"))
+    images = list(store.keys())
+    seeded = {p.encode() for p, _ in sel[0]}
+    existing = [[(0, 0, crop, crop)] if p in seeded else [] for p in images]
+    sel_obj = get_active_selection_class("variance", NUM_CLASSES, store, crop,
+                                         cfg.batch_size, device=DEVICE)
+    norm = region_score_maps(
+        sel_obj._entropy_scorer(ModelBundle(model, torch.device(DEVICE)), cfg.seed + 0),
+        sel_obj._paths_loader(images, include_labels=True, labels_as_mask=NUM_CLASSES),
+        existing, REGION)
+    check(tuple(norm.shape) == (POOL, crop - REGION + 1, crop - REGION + 1)
+          and bool(torch.isfinite(norm).all()), f"normalized maps {tuple(norm.shape)}")
+    (dev, dev_count), (host, host_count), nms_ms = nms_device_vs_host(
+        torch, norm, REGION, requested)
+    check(dev == host and dev_count == host_count,
+          "device NMS boxes equal host square_nms on the same maps")
+    loop_new = {p.encode(): b[1:] if p.encode() in seeded else b for p, b in sel[1]}
+    loop_new = {p: b for p, b in loop_new.items() if b}
+    check(region_ops.regions_to_dict(images, dev) == loop_new and dev_count == count,
+          "the loop's boxes equal the re-scored device NMS's")
+    return {"wall_s": wall_s, "counts": counts, "boxes": count,
+            "requested": requested, "rounds": [history[f] for f in sorted(history)],
+            "nms_ms": nms_ms, "launches": counts["upsample4_argmax"]}
+
+
+def pascal_region_phase(torch, seed: int, root: Path):
+    """One ``create_region_maps`` call at pa_experiments_06t-09t.sh's
+    geometry: 20 synthetic 375x500 Pascal records, base 512, crop -1 (the
+    letterbox), 21 classes, region 129, round 0's architecture with fresh
+    weights, the first 10 images labeled. 4x127+1 = 509 != 512, so the
+    sweep runs unfused: no B1 and no B2 launch. Its boxes equal the host
+    NMS's on the same normalized maps."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.ops import region as region_ops
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+    from deep_active_semantic_segmentation_torch.selection.region_pipeline import (
+        region_score_maps)
+
+    store, paths = write_store(root / "pascal" / "train", seed + 2, hw=PASCAL_HW,
+                               block=25, num_classes=PASCAL_CLASSES, void=(15, 47))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = build_model("deeplab", PASCAL_CLASSES, device=DEVICE, generator=gen,
+                        **PATHS["deeplab"]["build"])
+    bundle = ModelBundle(model, torch.device(DEVICE))
+    base, batch = 512, PATHS["deeplab"]["batch"]
+    sel = get_active_selection_class("variance", PASCAL_CLASSES, store, -1, batch,
+                                     device=DEVICE)
+    existing = [[(0, 0, base, base)] if i < SEED_SET else [] for i in range(len(paths))]
+    requested = math.ceil(5 * base ** 2 / REGION ** 2)
+    reset_counts()
+    t0 = time.perf_counter()
+    regions, count = sel.create_region_maps(bundle, paths, existing, REGION, 5, seed=seed)
+    query_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"pascal region query (base 512, crop -1, 21 classes): {len(paths)} images "
+          f"in {query_s:.3f} s, {count} boxes of {requested}, launches "
+          f"{json.dumps(counts)}", flush=True)
+    check(all(n == 0 for n in counts.values()),
+          f"the letterboxed sweep runs unfused: {counts}")
+    norm = region_score_maps(
+        sel._entropy_scorer(bundle, seed),
+        sel._paths_loader(paths, include_labels=True, labels_as_mask=PASCAL_CLASSES),
+        existing, REGION)
+    check(tuple(norm.shape) == (len(paths), base - REGION + 1, base - REGION + 1),
+          f"pascal normalized maps {tuple(norm.shape)}")
+    (dev, dev_count), (host, host_count), _ = nms_device_vs_host(
+        torch, norm, REGION, requested)
+    check(dev == host and dev_count == host_count,
+          "pascal: device NMS boxes equal host square_nms")
+    check(region_ops.regions_to_dict(paths, dev) == regions and dev_count == count,
+          "pascal: the entry point's boxes equal the re-scored NMS's")
+    check(not any(p in regions for p in paths[:SEED_SET]),
+          "pascal: the labeled images take no box")
+    return {"query_s": query_s, "counts": counts, "boxes": count,
+            "requested": requested}
+
+
+def canonical_nms_phase(torch, seed: int):
+    """The NMS at the canonical round's size: a seeded (2975, 385, 385) f32
+    stack on the card (16 levels in 35-pixel cells: plateaus, with ties
+    inside and across maps), 791 boxes. Device boxes equal the host
+    square_nms's; device NMS ms (median of 3, the stack uploaded anew from
+    a host copy before each, since the NMS works in place) and peak memory;
+    box sum and normalization ms for one batch of 5 maps at 513²."""
+    from deep_active_semantic_segmentation_torch.ops import region as region_ops
+    from deep_active_semantic_segmentation_torch.selection.region_pipeline import (
+        minmax_normalize)
+
+    check(NMS_BOXES == math.ceil(region_ops.num_requested_regions(50, 513, REGION)),
+          "791 boxes: a 50-image budget at 513² in 129² boxes")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    cells = NMS_SIDE // 35
+    low = torch.randint(0, 16, (NMS_POOL, cells, cells), generator=gen,
+                        device=DEVICE).float() / 15
+    norm = minmax_normalize(low.repeat_interleave(35, 1).repeat_interleave(35, 2))
+    del low
+    stack_bytes = norm.numel() * 4
+    t0 = time.perf_counter()
+    host_maps = norm.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    # the stack's making held two copies; the peak is the NMS's, the one
+    # stack it works on in place included
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for run in range(3):
+        if run:
+            norm.copy_(torch.from_numpy(host_maps))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boxes, k = region_ops.square_nms_device(norm, REGION, NMS_BOXES)
+        dev_count = int(k)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    dev = region_ops.device_boxes_to_regions(boxes.cpu().numpy(), dev_count,
+                                             NMS_POOL, REGION)
+    t0 = time.perf_counter()
+    host = region_ops.square_nms(host_maps, REGION, NMS_BOXES)
+    host_s = time.perf_counter() - t0
+    del host_maps
+    nms_ms = float(np.median(runs))
+    print(f"canonical NMS: ({NMS_POOL}, {NMS_SIDE}, {NMS_SIDE}) f32 "
+          f"({stack_bytes / 1e9:.3f} GB), {dev_count} boxes of {NMS_BOXES}: device "
+          f"{nms_ms:.3f} ms (runs {[round(r, 3) for r in runs]}), peak memory above "
+          f"the start {peak / 2**30:.3f} GiB; host square_nms {host_s:.3f} s after a "
+          f"{copy_s:.3f} s copy", flush=True)
+    check(dev == host, "canonical NMS: device boxes equal host square_nms")
+    check(dev_count == NMS_BOXES, f"{dev_count} boxes, expected {NMS_BOXES}")
+    del norm, boxes
+
+    maps = (torch.randint(0, 256, (5, 513, 513), generator=gen, device=DEVICE)
+            .float() / 256)
+    box_ms = cuda_ms(lambda: region_ops.box_sum_valid(maps, REGION), 20)
+    box_norm_ms = cuda_ms(lambda: minmax_normalize(
+        region_ops.box_sum_valid(maps, REGION)), 20)
+    # f64 integral image: exact for k/256 values (sums stay far below 2^53/256)
+    c = torch.nn.functional.pad(maps.double().cumsum(1).cumsum(2), (1, 0, 1, 0))
+    R = REGION
+    ref = c[:, R:, R:] - c[:, :-R, R:] - c[:, R:, :-R] + c[:, :-R, :-R]
+    box_err = (region_ops.box_sum_valid(maps, REGION).double() - ref).abs().max().item()
+    print(f"box sum of 5 maps at 513² (region {REGION}): {box_ms:.4f} ms; with the "
+          f"normalization {box_norm_ms:.4f} ms; largest difference from an f64 "
+          f"box sum {box_err:.3e} (values to {ref.max().item():.1f})", flush=True)
+    check(box_err == 0.0, "box sum of k/256 maps is exact in f32")
+    return {"pool": NMS_POOL, "side": NMS_SIDE, "boxes": dev_count,
+            "stack_bytes": stack_bytes, "nms_ms": nms_ms, "nms_runs_ms": runs,
+            "peak_bytes_above_start": peak, "host_nms_s": host_s,
+            "host_copy_s": copy_s, "box_sum_ms_5x513": box_ms,
+            "box_sum_normalize_ms_5x513": box_norm_ms}
+
+
+def ceal_round_phase(torch, seed: int, root: Path, paths):
+    """Two rounds of ``ceal_entropy_weakly_labeled`` through
+    ``run_active_loop``, launch counts set to 0 just before and read just
+    after: no B1 and no B2 launch; round 1's train pool is labeled + weak;
+    each weak target is 255 exactly where the mask is invalid; the pick is
+    the top 5 of the entropies re-scored on the card (TF32 off). Then, on
+    round 0's best.ckpt: the confidence, margin and fusion queries, their
+    scores finite and their picks equal to a re-score's; CEAL query
+    images/s."""
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data import pools
+    from deep_active_semantic_segmentation_torch.data.loader import PathsLoader
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.engine.active_loop import (
+        run_active_loop)
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+    from deep_active_semantic_segmentation_torch.selection.base import rank_ascending
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
+
+    cfg = parse_cli(CEAL_ARGV + ["--seed", str(seed), "--checkname", "ceal"]).finalize()
+    added = []
+    with spy_on(pools.ActiveImagePool, "add_weak_labels",
+                lambda pool, before, weak: added.append(
+                    (dict(weak), len(pool.current_image_paths), len(pool)))):
+        reset_counts()
+        t0 = time.perf_counter()
+        history = run_active_loop(cfg, dataset_root=str(root),
+                                  runs_root=str(root / "runs"), device=DEVICE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+    rounds = [history[k]["seconds"] for k in sorted(history)]
+    sel = [[p for p, _ in rows] for rows in
+           read_selections(root / "runs" / cfg.dataset / cfg.checkname).values()]
+    print(f"CEAL round through run_active_loop: {wall_s:.3f} s for 2 rounds; "
+          f"selections {[len(s) for s in sel]}; launches {json.dumps(counts)}; "
+          "round 0 train / validate / select s: "
+          f"{rounds[0]['train']:.3f} / {rounds[0]['validate']:.3f} / "
+          f"{rounds[0]['select']:.3f}; round 1 train / validate s: "
+          f"{rounds[1]['train']:.3f} / {rounds[1]['validate']:.3f}", flush=True)
+    check(all(n == 0 for n in counts.values()), f"no B1 or B2 launch in CEAL: {counts}")
+    k = cfg.active_batch_size
+    check([len(s) for s in sel] == [SEED_SET, SEED_SET + k] and sel[1][:SEED_SET] == sel[0],
+          f"CEAL selections 10 then 15: {[len(s) for s in sel]}")
+    check(len(added) == 1, "weak labels added once")
+    weak, n_labeled, n_pool = added[0]
+    check(n_labeled == SEED_SET + k and n_pool == n_labeled + len(weak)
+          and len(weak) == POOL - SEED_SET - k,
+          f"round 1's train pool is labeled + weak: {n_labeled} + {len(weak)} = {n_pool}")
+    store = DirectoryStore(str(root / "cityscapes" / "train"))
+    loader = PathsLoader(store, list(weak), cfg.crop_size, 1, include_labels=True,
+                         labels_as_mask=NUM_CLASSES)
+    for path, target in weak.items():
+        packed = loader.build_batch([path])["label"][0]
+        valid = np.unpackbits(packed, axis=-1)[:, :cfg.crop_size].astype(bool)
+        check(target.dtype == np.uint8 and target.shape == valid.shape
+              and np.array_equal(target == 255, ~valid)
+              and bool((target[valid] < NUM_CLASSES).all()),
+              "weak targets are 255 exactly where the mask is invalid")
+
+    model = build_model("deeplab", NUM_CLASSES, mc_dropout=True, device=DEVICE)
+    exp = root / "runs" / cfg.dataset / cfg.checkname
+    load_checkpoint(str(sorted(exp.glob("run_*"))[0] / "best.ckpt"), model, device=DEVICE)
+    bundle = ModelBundle(model, torch.device(DEVICE))
+    ceal = get_active_selection_class(cfg.active_selection_mode, NUM_CLASSES, store,
+                                      cfg.crop_size, cfg.batch_size, device=DEVICE)
+    remaining = [p for p in paths if p.decode() not in set(sel[0])]
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    top, entropies = ceal.get_maximum_entropy_samples(bundle, remaining, k)
+    check(bool(np.isfinite(entropies).all()) and [p.decode() for p in top] == sel[1][SEED_SET:],
+          "the CEAL round picked the top 5 of the re-scored entropies")
+    ranked = {}
+    for mode, entry in (("confidence", ceal.get_least_confident_samples),
+                        ("margin", ceal.get_least_margin_samples)):
+        picked = entry(bundle, remaining, k)
+        scores = ceal._score(bundle, remaining, mode)
+        check(bool(np.isfinite(scores).all())
+              and rank_ascending(scores, remaining, k) == picked,
+              f"CEAL {mode}: finite scores, pick equal to a re-score's")
+        ranked[mode] = picked
+    fused = ceal.get_fusion_of_confidence_margin_entropy_samples(
+        bundle, remaining, k, rng=random.Random(seed))
+    union = set(ranked["confidence"] + ranked["margin"] + top)
+    check(len(fused) == min(k, len(union)) and set(fused) <= union
+          and fused == ceal.get_fusion_of_confidence_margin_entropy_samples(
+              bundle, remaining, k, rng=random.Random(seed)),
+          "CEAL fusion: a draw from the three picks' union, the same from one seed")
+    check((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+          == flags, "the CEAL scorers restore the TF32 flags")
+
+    # CEAL query throughput: the entropy query over the whole pool, timed
+    # CEAL_QUERY_RUNS times after a warm-up (one run is too short a window)
+    ceal.get_maximum_entropy_samples(bundle, paths[:cfg.batch_size], 1)   # warm-up
+    runs = []
+    for _ in range(CEAL_QUERY_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ceal.get_maximum_entropy_samples(bundle, paths, k)
+        runs.append(time.perf_counter() - t0)
+    query_s = float(np.median(runs))
+    rates = sorted(len(paths) / r for r in runs)
+    print(f"CEAL entropy query: {len(paths)} images, median of {CEAL_QUERY_RUNS} "
+          f"{query_s:.3f} s ({len(paths) / query_s:.2f} images/s; runs "
+          f"{[round(r, 2) for r in rates]} images/s; crop {cfg.crop_size}, batch "
+          f"{cfg.batch_size}, TF32 off)", flush=True)
+    return {"wall_s": wall_s, "counts": counts, "selections": [len(s) for s in sel],
+            "weak": len(weak), "rounds": [history[f] for f in sorted(history)],
+            "query_s": query_s, "query_runs_s": runs,
+            "query_images_per_s": len(paths) / query_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1005,6 +1438,18 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         al_round = al_round_phase(torch, args.seed, tmp, paths)
         phase_s["al_round"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        region = {"cityscapes": region_round_phase(torch, args.seed, tmp, paths)}
+        phase_s["region_round"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        region["pascal"] = pascal_region_phase(torch, args.seed, tmp)
+        phase_s["pascal_region"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        region["canonical_nms"] = canonical_nms_phase(torch, args.seed)
+        phase_s["canonical_nms"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ceal = ceal_round_phase(torch, args.seed, tmp, paths)
+        phase_s["ceal_round"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -1014,6 +1459,9 @@ def main(argv=None) -> int:
                                if PATHS[r["arch"]]["kernel"] == row["name"])
         check(row["launches"] > 0, f"{row['name']} ran on its main path")
         row["al_round_launches"] = al_round["counts"][row["name"]]
+        row["region_round_launches"] = region["cityscapes"]["counts"][row["name"]]
+        row["pascal_region_launches"] = region["pascal"]["counts"][row["name"]]
+        row["ceal_round_launches"] = ceal["counts"][row["name"]]
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1021,7 +1469,8 @@ def main(argv=None) -> int:
             {"card": card, "build_s": build_s, "store_write_s": store_s,
              "sass_tensor_ops": sass, "phase_s": phase_s,
              "kernels": rows, "main_paths": paths_result,
-             "training": training, "al_round": al_round}, indent=1))
+             "training": training, "al_round": al_round, "region": region,
+             "ceal": ceal}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}
                                   for row in rows]}), flush=True)

@@ -3,10 +3,10 @@ itself the reference dataloaders/__init__.py:7-96): the same dataset keys
 and return tuple ``(train_set, train_loader, val_loader, None,
 num_classes)``.
 
-Ported: the image-level AL datasets (``active_cityscapes_image``,
-``active_pascal_image``) on a ``DirectoryStore``. The region datasets are
-ROADMAP A8, the passive ones come with ``train.py`` (A14), LMDB stores
-are A16.
+Ported: the image- and region-level AL datasets
+(``active_{cityscapes,pascal}_{image,region}``) on a ``DirectoryStore``.
+The passive ones come with ``train.py`` (ROADMAP A14), LMDB stores are
+A16.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Optional
 from deep_active_semantic_segmentation_torch import constants, resolve_device
 from deep_active_semantic_segmentation_torch.data.loader import Loader
 from deep_active_semantic_segmentation_torch.data.pools import (
-    CITYSCAPES, PASCAL, ActiveImagePool)
+    CITYSCAPES, PASCAL, ActiveImagePool, ActiveRegionPool)
 from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
 
 
@@ -45,10 +45,11 @@ def make_dataloader(dataset: str, base_size: int, crop_size: int,
     the train loader runs one producer thread, so the draws keep their
     order."""
     device = resolve_device(device)
-    if dataset.endswith("_region"):
-        raise NotImplementedError(f"dataset '{dataset}': region datasets are "
-                                  "not ported yet (ROADMAP A8)")
-    if not dataset.endswith("_image"):
+    if dataset.endswith("_image"):
+        pool = ActiveImagePool
+    elif dataset.endswith("_region"):
+        pool = ActiveRegionPool
+    else:
         raise NotImplementedError(f"dataset '{dataset}': passive datasets come "
                                   "with train.py (ROADMAP A14)")
     root = dataset_root or constants.DATASET_ROOT
@@ -56,12 +57,11 @@ def make_dataloader(dataset: str, base_size: int, crop_size: int,
     dataset_path = os.path.join(root, family.name)
     seed_dir = os.path.join(dataset_path, "seed_sets")
 
-    train_set = ActiveImagePool(family, _resolve_store(dataset_path, "train"),
-                                base_size, crop_size, "train", init_set,
-                                seed_dir, overfit, memory_hog, rng)
-    val_set = ActiveImagePool(family, _resolve_store(dataset_path, "val"),
-                              base_size, crop_size, "val", None, seed_dir,
-                              overfit, memory_hog, rng)
+    train_set = pool(family, _resolve_store(dataset_path, "train"), base_size,
+                     crop_size, "train", init_set, seed_dir, overfit,
+                     memory_hog, rng)
+    val_set = pool(family, _resolve_store(dataset_path, "val"), base_size,
+                   crop_size, "val", None, seed_dir, overfit, memory_hog, rng)
     train_loader = Loader(train_set, batch_size, shuffle=True, seed=seed,
                           device=device)
     val_loader = Loader(val_set, batch_size, shuffle=False, device=device)

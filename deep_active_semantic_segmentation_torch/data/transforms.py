@@ -212,3 +212,33 @@ class ScaleWithPaddingImageOnly:
         out_image[b // 2 - oh // 2: b // 2 + oh // 2,
                   b // 2 - ow // 2: b // 2 + ow // 2] = imresize(img, (oh, ow))
         return out_image
+
+
+def invert_fix_scale_crop(label: np.ndarray, output: np.ndarray,
+                          region, crop_size: int) -> None:
+    """Reference custom_transforms.py:300-315: project a crop-space (r, c,
+    h, w) box back to full-resolution label space and copy the ground
+    truth there into ``output``."""
+    h, w = label.shape
+    oh, ow = _short_side_dims(w, h, crop_size)
+    x1, y1 = _center_crop_origin(oh, ow, crop_size)
+    b0 = round((region[0] + y1) * (h / oh))
+    b1 = round((region[1] + x1) * (w / ow))
+    b2 = round(region[2] * (h / oh))
+    b3 = round(region[3] * (w / ow))
+    output[b0: b0 + b2, b1: b1 + b3] = label[b0: b0 + b2, b1: b1 + b3]
+
+
+def invert_scale_crop(label: np.ndarray, output: np.ndarray,
+                      region, base_size: int) -> None:
+    """Reference custom_transforms.py:318-342: letterbox-space box ->
+    full-resolution copy."""
+    h, w = label.shape
+    oh, ow = _letterbox_dims(w, h, base_size)
+    padding_h = abs(base_size - oh) // 2
+    padding_w = abs(base_size - ow) // 2
+    b0 = round(max(region[0] - padding_h, 0) * (h / oh))
+    b1 = round(max(region[1] - padding_w, 0) * (w / ow))
+    b2 = round(region[2] * (h / oh))
+    b3 = round(region[3] * (w / ow))
+    output[b0: b0 + b2, b1: b1 + b3] = label[b0: b0 + b2, b1: b1 + b3]

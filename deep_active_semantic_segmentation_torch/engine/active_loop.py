@@ -8,12 +8,15 @@ The host stream is one ``random.Random`` seeded with ``args.seed``; the
 pools' train transforms, the trainer's visualization pick and the
 random-mode scorer draw from it in the JAX package's order (which seeds
 the module-level ``random`` instead), so one seed gives both packages the
-same draws. Selection modes ported: ``random`` and ``variance`` on image
-datasets; every other mode raises, naming its ROADMAP item.
+same draws; the ``ceal_fusion`` shuffle draws from it too. Selection
+modes ported: ``random``, ``variance`` and the five ``ceal_*`` modes on
+image datasets, ``variance`` on region datasets; every other mode raises
+before training, naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import random
 import time
@@ -32,11 +35,38 @@ from deep_active_semantic_segmentation_torch.utils.summaries import (
 
 _NOT_PORTED = {
     "variance_representative": "A10", "coreset": "A10",
-    "ceal_confidence": "A9", "ceal_margin": "A9", "ceal_entropy": "A9",
-    "ceal_fusion": "A9", "ceal_entropy_weakly_labeled": "A9",
     "noise_image": "A11", "noise_feature": "A11", "noise_variance": "A11",
     "accuracy_labels": "A13", "accuracy_eval": "A13",
 }
+_CEAL = ("ceal_confidence", "ceal_margin", "ceal_entropy", "ceal_fusion",
+         "ceal_entropy_weakly_labeled")
+_REGION_CAPABLE = ("random", "variance", "variance_representative",
+                   "noise_variance", "accuracy_eval", "accuracy_labels")
+
+
+def _check_mode(mode: str, dataset: str) -> None:
+    """Refuse, before any training, what the loop cannot run: the JAX
+    loop's up-front checks (its engine/active_loop.py:34-45; the reference
+    asserts only at selection time, after a whole training round), then
+    the modes not ported yet, then ``random`` on region datasets, which
+    the JAX loop lists as region-capable but fails at its first selection
+    (ROADMAP C)."""
+    region = dataset.endswith("_region")
+    if mode == "coreset" and not dataset.endswith("_image"):
+        raise AssertionError("only images supported for coreset approach")
+    if region and mode not in _REGION_CAPABLE:
+        raise NotImplementedError(f"selection mode '{mode}' does not support "
+                                  "region datasets")
+    if mode in _NOT_PORTED:
+        raise NotImplementedError(f"selection mode '{mode}' is not ported "
+                                  f"yet (ROADMAP {_NOT_PORTED[mode]})")
+    if region and mode == "random":
+        raise NotImplementedError(
+            "selection mode 'random' on region datasets: the JAX loop reads "
+            "the region pool's remaining_image_paths, which it does not have "
+            "(ROADMAP C, random on region datasets)")
+    if mode not in ("random", "variance") + _CEAL:
+        raise NotImplementedError(mode)
 
 
 def run_active_loop(args, dataset_root: Optional[str] = None,
@@ -47,11 +77,8 @@ def run_active_loop(args, dataset_root: Optional[str] = None,
     and its wall seconds in ``train``, ``validate`` and ``select`` (the
     best-checkpoint reload, the scoring and the pool update)."""
     mode = args.active_selection_mode
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(f"selection mode '{mode}' is not ported "
-                                  f"yet (ROADMAP {_NOT_PORTED[mode]})")
-    if mode not in ("random", "variance"):
-        raise NotImplementedError(mode)
+    region = args.dataset.endswith("_region")
+    _check_mode(mode, args.dataset)
     device = resolve_device(device)
     rng = random.Random(args.seed)
 
@@ -97,8 +124,11 @@ def run_active_loop(args, dataset_root: Optional[str] = None,
     for selection_iter in range(args.resume, total_iterations):
         print(f"ActiveIteration-{selection_iter:03d}/{total_iterations:03d}")
         fraction = round(training_set.get_fraction_of_labeled_data() * 100)
-        trainer.setup_saver_and_summary(fraction,
-                                        training_set.current_image_paths)
+        trainer.setup_saver_and_summary(
+            fraction, training_set.current_image_paths,
+            regions=([training_set.current_paths_to_regions_map[x]
+                      for x in training_set.current_image_paths]
+                     if region else None))
         training_set.make_dataset_multiple_of_batchsize(args.batch_size)
         trainer.initialize()  # fresh model every round (active_train.py:394)
 
@@ -148,20 +178,67 @@ def run_active_loop(args, dataset_root: Optional[str] = None,
         if selection_iter == total_iterations - 1:
             break
 
-        # -- selection (active_train.py:440-466) --
+        # -- selection (active_train.py:440-527) --
         t0 = time.perf_counter()
         trainer.load_best_checkpoint()
-        if mode == "random":
-            selected = active_selector.get_random_uncertainity(
-                training_set.remaining_image_paths, args.active_batch_size,
-                rng=rng)
-        else:
-            print("Calculating entropies..")
-            selected = active_selector.get_vote_entropy_for_images(
-                trainer.bundle, training_set.remaining_image_paths,
-                args.active_batch_size, seed=args.seed + selection_iter)
-        training_set.expand_training_set(selected)
+        _select(args, mode, active_selector, trainer.bundle, training_set,
+                selection_iter, rng)
         seconds["select"] = time.perf_counter() - t0
 
     writer.close()
     return history
+
+
+def _select(args, mode, active_selector, bundle, training_set,
+            selection_iter: int, rng: random.Random) -> None:
+    """One selection and the pool update (the JAX loop's dispatch,
+    engine/active_loop.py:152-231)."""
+    k = args.active_batch_size
+    if args.dataset.endswith("_region"):   # only `variance` (_check_mode)
+        print("Creating region maps..")
+        regions, counts = active_selector.create_region_maps(
+            bundle, training_set.image_paths,
+            training_set.get_existing_region_maps(), args.active_region_size,
+            k, seed=args.seed + selection_iter)
+        print(f"Got {counts}/"
+              f"{math.ceil(k * args.crop_size ** 2 / args.active_region_size ** 2)}"
+              " regions")
+        training_set.expand_training_set(
+            regions, counts * args.active_region_size ** 2)
+        return
+    remaining = training_set.remaining_image_paths
+    if mode == "random":
+        training_set.expand_training_set(
+            active_selector.get_random_uncertainity(remaining, k, rng=rng))
+    elif mode == "variance":
+        print("Calculating entropies..")
+        training_set.expand_training_set(
+            active_selector.get_vote_entropy_for_images(
+                bundle, remaining, k, seed=args.seed + selection_iter))
+    elif mode == "ceal_confidence":
+        training_set.expand_training_set(
+            active_selector.get_least_confident_samples(bundle, remaining, k))
+    elif mode == "ceal_margin":
+        training_set.expand_training_set(
+            active_selector.get_least_margin_samples(bundle, remaining, k))
+    elif mode == "ceal_entropy":
+        training_set.expand_training_set(
+            active_selector.get_maximum_entropy_samples(bundle, remaining, k)[0])
+    elif mode == "ceal_fusion":
+        training_set.expand_training_set(
+            active_selector.get_fusion_of_confidence_margin_entropy_samples(
+                bundle, remaining, k, rng=rng))
+    elif mode == "ceal_entropy_weakly_labeled":
+        selected, entropies = active_selector.get_maximum_entropy_samples(
+            bundle, remaining, k)
+        training_set.clear_weak_labels()
+        threshold = (args.weak_label_entropy_threshold
+                     - selection_iter * args.weak_label_threshold_decay)
+        weak_labels = active_selector.get_weakly_labeled_data(
+            bundle, remaining, threshold, entropies)
+        for sample in selected:
+            weak_labels.pop(sample, None)
+        training_set.expand_training_set(selected)
+        training_set.add_weak_labels(weak_labels)
+    else:
+        raise NotImplementedError(mode)

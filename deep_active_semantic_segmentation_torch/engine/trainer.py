@@ -81,12 +81,15 @@ class Trainer:
         self._class_weights = None
 
     # -- saver / summary (active_train.py:34-40) --
-    def setup_saver_and_summary(self, num_current_labeled_samples, samples):
+    def setup_saver_and_summary(self, num_current_labeled_samples, samples,
+                                regions=None):
+        """The round's run directory; ``regions`` (one box list per sample)
+        makes selections.txt's lines ``path,r,c,h,w,...``."""
         self.num_current_labeled_samples = num_current_labeled_samples
         self.saver = ActiveSaver(self.args, num_current_labeled_samples,
                                  runs_root=self.runs_root)
         self.saver.save_experiment_config()
-        self.saver.save_active_selections(samples)
+        self.saver.save_active_selections(samples, regions)
         self.summary = TensorboardSummary(self.saver.experiment_dir)
         self.writer = self.summary.create_summary()
 

@@ -1,8 +1,15 @@
-"""Vote-entropy scoring helpers (the parts of the JAX package's
-ops/entropy.py that MC-dropout image scoring runs).
+"""Uncertainty scoring helpers: vote entropy, softmax entropy, confidence
+and margin (own copy of the JAX package's ops/entropy.py).
 
-Parity target: reference active_selection/mc_dropout.py:43-49 — log2 with
-a +1e-12 eps, ignored pixels zeroed.
+Parity targets:
+* vote entropy over MC argmax votes — reference
+  active_selection/mc_dropout.py:43-49 (log2, +1e-12 eps, ignored pixels
+  zeroed);
+* softmax entropy — ceal.py:114-119; max-softmax confidence —
+  ceal.py:36-39 (ignored pixels 1); best-minus-second margin — ceal.py
+  :83-91 (ignored pixels 1).
+
+Logits are NCHW (classes on dim 1); the softmax is taken in f32.
 """
 
 from __future__ import annotations
@@ -40,6 +47,34 @@ def vote_entropy(votes: torch.Tensor, num_classes: int) -> torch.Tensor:
         p = (votes == c).sum(dim=0, dtype=torch.int32).to(torch.float32) / num_steps
         ent = ent - p * torch.log2(p + LOG2_EPS)
     return ent
+
+
+def softmax_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                    num_classes: int) -> torch.Tensor:
+    """(B, C, H, W) logits -> (B, H, W) per-pixel softmax entropy, zeroed
+    at ignored pixels (ceal.py:114-119)."""
+    p = torch.softmax(logits.to(torch.float32), dim=1)
+    ent = -(p * torch.log2(p + LOG2_EPS)).sum(dim=1)
+    return torch.where(valid_mask(labels, num_classes), ent,
+                       torch.zeros_like(ent))
+
+
+def max_confidence(logits: torch.Tensor, labels: torch.Tensor,
+                   num_classes: int) -> torch.Tensor:
+    """Per-pixel max softmax probability; ignored pixels 1 (ceal.py:36-39)."""
+    conf = torch.softmax(logits.to(torch.float32), dim=1).amax(dim=1)
+    return torch.where(valid_mask(labels, num_classes), conf,
+                       torch.ones_like(conf))
+
+
+def margin(logits: torch.Tensor, labels: torch.Tensor,
+           num_classes: int) -> torch.Tensor:
+    """Best-minus-second-best softmax probability; ignored pixels 1
+    (ceal.py:83-91)."""
+    p = torch.softmax(logits.to(torch.float32), dim=1)
+    top2 = p.topk(2, dim=1).values
+    m = top2[:, 0] - top2[:, 1]
+    return torch.where(valid_mask(labels, num_classes), m, torch.ones_like(m))
 
 
 def mean_over_pixels(maps: torch.Tensor) -> torch.Tensor:

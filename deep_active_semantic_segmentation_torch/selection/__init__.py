@@ -1,19 +1,19 @@
 """Active-selection engine: batched on-device pool sweeps (parity: the JAX
-package's selection/__init__.py factory surface). Only the MC-dropout
-image modes are ported so far; every other mode raises, naming the ROADMAP
-item that ports it."""
+package's selection/__init__.py factory surface). Ported: the MC-dropout
+modes (image and region level) and the CEAL modes; every other mode
+raises, naming the ROADMAP item that ports it."""
 
 from deep_active_semantic_segmentation_torch.selection.base import ModelBundle
+from deep_active_semantic_segmentation_torch.selection.ceal import (
+    ActiveSelectionCEAL)
 from deep_active_semantic_segmentation_torch.selection.mc_dropout import (
     ActiveSelectionMCDropout)
 
-__all__ = ["ModelBundle", "ActiveSelectionMCDropout",
+__all__ = ["ModelBundle", "ActiveSelectionCEAL", "ActiveSelectionMCDropout",
            "get_active_selection_class"]
 
 _NOT_PORTED = {
     "coreset": "A10",
-    "ceal_confidence": "A9", "ceal_margin": "A9", "ceal_entropy": "A9",
-    "ceal_fusion": "A9", "ceal_entropy_weakly_labeled": "A9",
     "noise_image": "A11", "noise_feature": "A11", "noise_variance": "A11",
     "accuracy_labels": "A13", "accuracy_eval": "A13",
 }
@@ -26,6 +26,10 @@ def get_active_selection_class(active_selection_method, dataset_num_classes,
     env). ``device``: where pool batches are scored (the CUDA card by
     default); ``mc_dtype``: the MC forwards' compute dtype."""
     m = active_selection_method
+    if m in ("ceal_confidence", "ceal_margin", "ceal_entropy", "ceal_fusion",
+             "ceal_entropy_weakly_labeled"):
+        return ActiveSelectionCEAL(dataset_num_classes, store, crop_size,
+                                   dataloader_batch_size, device=device)
     if m in ("variance", "variance_representative", "random"):
         return ActiveSelectionMCDropout(dataset_num_classes, store, crop_size,
                                         dataloader_batch_size, device=device,

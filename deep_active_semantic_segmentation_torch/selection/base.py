@@ -94,3 +94,10 @@ def rank_descending(scores, images, selection_count):
     scores = np.asarray(scores, np.float64)
     order = np.argsort(-scores, kind="stable")
     return [images[i] for i in order[:selection_count]]
+
+
+def rank_ascending(scores, images, selection_count):
+    """reference sorted(zip(scores, images))[:k] — stable on ties."""
+    scores = np.asarray(scores, np.float64)
+    order = np.argsort(scores, kind="stable")
+    return [images[i] for i in order[:selection_count]]

@@ -1,5 +1,6 @@
 """Batch scoring computations shared by the selectors (parity: the JAX
-package's selection/kernels.py, MC-dropout on DeepLab and ENet).
+package's selection/kernels.py: MC-dropout on DeepLab and ENet, and the
+deterministic CEAL scores and weak labels).
 
 One call scores a whole batch on the device and returns (B, H, W) maps.
 The MC sweep runs the deterministic part of the network once per batch
@@ -64,14 +65,32 @@ def _mc_precision():
     """cuDNN TF32 ON for the MC forwards. The JAX package runs them at the
     TPU's default single-pass bf16 matmul precision: votes are argmaxes,
     which the rounding perturbs far less than the MC sampling noise does.
-    TF32 is the card's counterpart (and cuDNN's default). Deterministic
-    scorers of later slices turn it off."""
+    TF32 is the card's counterpart (and cuDNN's default). The
+    deterministic scorers turn it off (``_deterministic_precision``)."""
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def _deterministic_precision():
+    """cuDNN and matmul TF32 OFF for the deterministic scorers (CEAL): one
+    forward per image whose softmax ranks near-equal images, which TF32's
+    10 mantissa bits reorder. The JAX package runs them at 'high' matmul
+    precision (its selection/base.py:30,53). The flags are restored on
+    exit."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
@@ -147,3 +166,55 @@ def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
         mask = (ent_ops.unpack_mask(labels, W) if labels_packed
                 else ent_ops.valid_mask(labels, num_classes))
         return torch.where(mask, ent, torch.zeros_like(ent))
+
+
+def _unpacked_labels(labels, width: int, num_classes: int,
+                     labels_packed: bool) -> torch.Tensor:
+    """Resolve the packed-mask wire for the deterministic scorers: a labels
+    plane whose valid_mask equals the shipped 1-bit predicate (0 where
+    valid, num_classes where not). They read labels only through
+    valid_mask, so this is exact."""
+    if not labels_packed:
+        return labels
+    mask = ent_ops.unpack_mask(labels, width)
+    return torch.where(mask, 0, num_classes).to(torch.int32)
+
+
+def _deterministic_logits(model, images) -> torch.Tensor:
+    """(B, C, H, W) full-resolution logits of one eval-mode forward."""
+    if model.training:
+        raise ValueError("deterministic scoring needs the model in eval mode "
+                         "(BN at running statistics, no dropout)")
+    return model(normalize_on_device(images))
+
+
+def softmax_score_per_image(model, images, labels, num_classes: int,
+                            mode: str, labels_packed: bool = False) -> torch.Tensor:
+    """One deterministic forward -> (B,) per-image mean score.
+
+    mode: 'confidence' (ceal.py:19-70), 'margin' (ceal.py:72-98),
+    'entropy' (ceal.py:100-126). Runs neither B1 nor B2: the logits are
+    upsampled to full resolution and every class's probability is needed.
+    """
+    scorers = {"confidence": ent_ops.max_confidence, "margin": ent_ops.margin,
+               "entropy": ent_ops.softmax_entropy}
+    if mode not in scorers:
+        raise NotImplementedError(mode)
+    labels = _unpacked_labels(labels, images.shape[2], num_classes,
+                              labels_packed)
+    with torch.inference_mode(), _deterministic_precision():
+        logits = _deterministic_logits(model, images)
+        return ent_ops.mean_over_pixels(scorers[mode](logits, labels,
+                                                      num_classes))
+
+
+def weak_label_predictions(model, images, labels, num_classes: int,
+                           labels_packed: bool = False) -> torch.Tensor:
+    """(B, H, W) uint8 argmax predictions, 255 at ignored pixels
+    (ceal.py:158-164)."""
+    labels = _unpacked_labels(labels, images.shape[2], num_classes,
+                              labels_packed)
+    with torch.inference_mode(), _deterministic_precision():
+        pred = _deterministic_logits(model, images).argmax(dim=1).to(torch.uint8)
+        valid = ent_ops.valid_mask(labels, num_classes)
+        return torch.where(valid, pred, torch.full_like(pred, 255))

@@ -1,22 +1,26 @@
-"""MC-dropout selector for images — modes random / variance /
-variance_representative (parity: reference active_selection/mc_dropout.py,
-the JAX package's selection/mc_dropout.py).
+"""MC-dropout selector — modes random / variance / variance_representative
+(parity: reference active_selection/mc_dropout.py, the JAX package's
+selection/mc_dropout.py).
 
 Each pool batch runs one ``mc_vote_entropy_maps`` sweep of MC_STEPS
 dropout forwards on the device with a generator seeded from (seed, batch
 index); images are ranked by mean vote entropy with the reference's
-stable descending sort.
+stable descending sort; regions go through the shared region pipeline
+(region_pipeline.py).
 """
 
 from __future__ import annotations
 
 import random
+from typing import Dict, Tuple
 
 from deep_active_semantic_segmentation_torch import constants
 from deep_active_semantic_segmentation_torch.ops.entropy import mean_over_pixels
 from deep_active_semantic_segmentation_torch.selection import kernels
 from deep_active_semantic_segmentation_torch.selection.base import (
     ActiveSelectionBase, ModelBundle, collect_scores, rank_descending)
+from deep_active_semantic_segmentation_torch.selection.region_pipeline import (
+    create_region_maps_from_scorer)
 
 
 class ActiveSelectionMCDropout(ActiveSelectionBase):
@@ -62,6 +66,13 @@ class ActiveSelectionMCDropout(ActiveSelectionBase):
 
     def create_region_maps(self, bundle: ModelBundle, images,
                            existing_regions, region_size, selection_size,
-                           seed: int = 0):
-        raise NotImplementedError("region-mode MC scoring is not ported yet "
-                                  "(ROADMAP A8)")
+                           seed: int = 0) -> Tuple[Dict, int]:
+        """mc_dropout.py:123-171: score every image in ``images``, suppress
+        its ``existing_regions``, box-sum, normalize and take square boxes
+        on the device. Returns ({path: [(r, c, size, size)]}, box count)."""
+        base_size = 512 if self.crop_size == -1 else self.crop_size
+        loader = self._paths_loader(images, include_labels=True,
+                                    labels_as_mask=self.dataset_num_classes)
+        return create_region_maps_from_scorer(
+            self._entropy_scorer(bundle, seed), loader, list(images),
+            existing_regions, region_size, selection_size, base_size)

@@ -186,3 +186,27 @@ def test_bincount_confusion_equals_the_hosts(cuda_device):
     valid = g < 19
     ref = np.bincount(19 * g[valid] + p[valid], minlength=19 * 19).reshape(19, 19)
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cells,cell,region,count,scale", [
+    (4, 12, 5, 13, 25.5, 1.0),
+    (4, 12, 5, 13, 25.5, 0.02),          # under the 0.01 stop after a few boxes
+    (40, 11, 35, 129, 80, 1.0)])         # 385² maps: crop 513, region 129
+def test_square_nms_device_on_the_card_equals_host(cuda_device, n, cells, cell,
+                                                   region, count, scale):
+    """The device NMS on the card picks the host NMS's boxes, in order, on
+    a plateaued stack (few levels: ties inside and across maps)."""
+    import numpy as np
+
+    from deep_active_semantic_segmentation_torch.ops import region as region_ops
+
+    rng = np.random.RandomState(n + cells)
+    low = rng.randint(0, 4, (n, cells, cells)).astype(np.float32) / 3
+    maps = (np.kron(low, np.ones((1, cell, cell), np.float32)) * scale).astype(np.float32)
+    host = region_ops.square_nms(maps.copy(), region, count)
+    boxes, k = region_ops.square_nms_device(torch.from_numpy(maps).to(cuda_device),
+                                            region, int(np.ceil(count)))
+    assert boxes.device.type == "cuda"
+    dev = region_ops.device_boxes_to_regions(boxes.cpu().numpy(), int(k), n, region)
+    assert dev == host

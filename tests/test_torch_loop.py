@@ -138,8 +138,6 @@ def test_pool_bookkeeping_equals_jax(dataset_root, memory_hog):
         for k in ("image", "label"):
             assert a[k].dtype == b[k].dtype == np.uint8
             np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError, match="A8"):
-        pt_pools.ActiveRegionPool()
 
 
 def test_checkpoint_round_trip_is_exact(tmp_path):
@@ -273,12 +271,18 @@ def test_variance_mode_loop_picks_the_top_k_of_its_scorer(dataset_root, tmp_path
 
 def test_unported_parts_raise_naming_their_item(dataset_root, tmp_path):
     base = CANONICAL + TOY + ["--checkname", "x"]
+    region = ["--dataset", "active_cityscapes_region"]
     for extra, item in ((["--active-selection-mode", "coreset"], "A10"),
                         (["--active-selection-mode", "variance_representative"], "A10"),
-                        (["--active-selection-mode", "ceal_entropy"], "A9"),
                         (["--active-selection-mode", "noise_image"], "A11"),
                         (["--active-selection-mode", "accuracy_labels"], "A13"),
-                        (["--dataset", "active_cityscapes_region"], "A8"),
+                        (region + ["--active-selection-mode",
+                                   "variance_representative"], "A10"),
+                        (region + ["--active-selection-mode", "noise_variance"], "A11"),
+                        (region + ["--active-selection-mode", "accuracy_eval"], "A13"),
+                        (region + ["--active-selection-mode", "ceal_entropy"],
+                         "does not support region datasets"),
+                        (region, r"ROADMAP C, random on region"),
                         (["--dataset", "cityscapes"], "A14"),
                         (["--architecture", "enet"], "A12"),
                         (["--pretrained-weights", "w.pth"], "A14"),
@@ -287,3 +291,142 @@ def test_unported_parts_raise_naming_their_item(dataset_root, tmp_path):
         with pytest.raises(NotImplementedError, match=item):
             pt_run_active_loop(cfg, dataset_root=dataset_root,
                                runs_root=str(tmp_path), device="cpu")
+    # the JAX loop's own up-front check: core-set on images only
+    cfg = pt_config.parse_cli(base + region + ["--active-selection-mode",
+                                               "coreset"]).finalize()
+    with pytest.raises(AssertionError, match="only images"):
+        pt_run_active_loop(cfg, dataset_root=dataset_root,
+                           runs_root=str(tmp_path), device="cpu")
+
+
+def test_random_on_regions_fails_in_jax_and_is_rejected_before_training(
+        dataset_root, tmp_path):
+    """The JAX loop lists `random` as region-capable, but its branch reads
+    `remaining_image_paths`, which the region pool lacks, and hands one
+    list to an `expand_training_set` that takes (regions, pixels): it fails
+    after a whole training round. The port refuses before training."""
+    city = os.path.join(dataset_root, "cityscapes")
+    pool = jx_pools.ActiveRegionPool(
+        jx_pools.CITYSCAPES, JxDirectoryStore(os.path.join(city, "train")), SIDE,
+        SIDE, "train", "set_0.txt", os.path.join(city, "seed_sets"))
+    assert not hasattr(pool, "remaining_image_paths")
+    with pytest.raises(TypeError):
+        pool.expand_training_set([pool.image_paths[-1]])
+    cfg = pt_config.parse_cli(CANONICAL + TOY + [
+        "--checkname", "rr", "--dataset", "active_cityscapes_region",
+        "--active-selection-mode", "random"]).finalize()
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        pt_run_active_loop(cfg, dataset_root=dataset_root,
+                           runs_root=str(tmp_path), device="cpu")
+    assert not os.listdir(tmp_path)           # no run directory, no training
+
+
+REGION = 9
+
+
+def test_region_variance_loop_picks_the_boxes_of_its_scorer(dataset_root, tmp_path,
+                                                            monkeypatch, capsys):
+    """A 2-round `variance` loop on `active_cityscapes_region` through
+    `active_train_torch.main` on the CPU: selections.txt carries the JAX
+    package's region lines, the labeled pixels grow by count * region²,
+    and round 1's boxes are those of the port's own region pipeline on
+    round 0's best.ckpt."""
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+
+    monkeypatch.setattr(pt_constants, "DATASET_ROOT", dataset_root)
+    monkeypatch.setattr(pt_constants, "RUNS", str(tmp_path))
+    argv = CANONICAL + TOY + ["--checkname", "reg", "--dataset",
+                              "active_cityscapes_region", "--active-selection-mode",
+                              "variance", "--active-region-size", str(REGION),
+                              "--dtype", "float32"]
+    history = active_train_torch.main(argv, device="cpu")
+    requested = -(-3 * SIDE ** 2 // REGION ** 2)
+    got = [line for line in capsys.readouterr().out.splitlines()
+           if line.startswith("Got ")]
+    assert len(got) == 1 and got[0].endswith(f"/{requested} regions")
+    count = int(got[0].split()[1].split("/")[0])
+    assert 1 <= count <= requested
+    pixels = (SEED_SET * SIDE ** 2, SEED_SET * SIDE ** 2 + count * REGION ** 2)
+    assert sorted(history) == [round(p / (POOL * SIDE ** 2) * 100) for p in pixels]
+
+    exp = os.path.join(str(tmp_path), "active_cityscapes_region", "reg")
+    runs = sorted(d for d in os.listdir(exp) if d.startswith("run_"))
+    lines = [open(os.path.join(exp, d, "selections.txt")).read().splitlines()
+             for d in runs]
+    seed_paths = [line.split(",")[0] for line in lines[0]]
+    assert lines[0] == [f"{p},0,0,{SIDE},{SIDE}" for p in seed_paths]
+
+    def parse(line):
+        path, *nums = line.split(",")
+        nums = [int(x) for x in nums]
+        return path.encode(), [tuple(nums[i:i + 4]) for i in range(0, len(nums), 4)]
+    after = dict(parse(line) for line in lines[1])
+    assert list(after)[:SEED_SET] == [p.encode() for p in seed_paths]
+    assert sum(len(v) for v in after.values()) == SEED_SET + count
+
+    model = build_model("deeplab", NUM_CLASSES, mc_dropout=True, device="cpu")
+    load_checkpoint(os.path.join(exp, runs[0], "best.ckpt"), model)
+    train = os.path.join(dataset_root, "cityscapes", "train")
+    image_paths = list(DirectoryStore(train).keys())
+    existing = [[(0, 0, SIDE, SIDE)] if p.decode() in seed_paths else []
+                for p in image_paths]
+    sel = get_active_selection_class("variance", NUM_CLASSES, DirectoryStore(train),
+                                     SIDE, 2, device="cpu")
+    regions, n = sel.create_region_maps(ModelBundle(model, torch.device("cpu")),
+                                        image_paths, existing, REGION, 3, seed=3 + 0)
+    assert n == count
+    expected = {p.encode(): [(0, 0, SIDE, SIDE)] for p in seed_paths}
+    for path, boxes in regions.items():
+        expected.setdefault(path, []).extend(boxes)
+    assert after == expected and list(after) == list(expected)
+
+
+def test_ceal_weak_label_loop_picks_the_top_k_and_labels_the_rest(
+        dataset_root, tmp_path, monkeypatch):
+    """A 2-round `ceal_entropy_weakly_labeled` loop through
+    `active_train_torch.main` on the CPU: round 1's new lines are the top 3 entropies of the port's
+    scorer on round 0's best.ckpt, and every other remaining image (all sit
+    under the threshold) is weakly labeled with its prediction, served by
+    the pool in round 1's training."""
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+
+    added = []
+    real_add = pt_pools.ActiveImagePool.add_weak_labels
+
+    def spy(pool, weak):
+        added.append(dict(weak))
+        real_add(pool, weak)
+        added.append(len(pool))
+
+    monkeypatch.setattr(pt_pools.ActiveImagePool, "add_weak_labels", spy)
+    monkeypatch.setattr(pt_constants, "DATASET_ROOT", dataset_root)
+    monkeypatch.setattr(pt_constants, "RUNS", str(tmp_path))
+    argv = CANONICAL + TOY + ["--checkname", "weak", "--active-selection-mode",
+                              "ceal_entropy_weakly_labeled", "--dtype", "float32",
+                              "--weak-label-entropy-threshold", "4.3"]
+    history = active_train_torch.main(argv, device="cpu")
+    assert sorted(history) == [31, 50]
+    exp = os.path.join(str(tmp_path), "active_cityscapes_image", "weak")
+    sel = [open(os.path.join(exp, f"run_{p}", "selections.txt")).read().splitlines()
+           for p in ("0031", "0050")]
+    assert sel[1][:SEED_SET] == sel[0] and len(sel[1]) == SEED_SET + 3
+    new = [s.encode() for s in sel[1][SEED_SET:]]
+
+    model = build_model("deeplab", NUM_CLASSES, mc_dropout=True, device="cpu")
+    load_checkpoint(os.path.join(exp, "run_0031", "best.ckpt"), model)
+    train = os.path.join(dataset_root, "cityscapes", "train")
+    remaining = [k for k in DirectoryStore(train).keys()
+                 if k.decode() not in set(sel[0])]
+    scorer = get_active_selection_class("ceal_entropy_weakly_labeled", NUM_CLASSES,
+                                        DirectoryStore(train), SIDE, 2, device="cpu")
+    bundle = ModelBundle(model, torch.device("cpu"))
+    top, entropies = scorer.get_maximum_entropy_samples(bundle, remaining, 3)
+    assert new == top and max(entropies) < 4.3
+    weak, pool_len = added
+    assert list(weak) == [p for p in remaining if p not in top]
+    assert pool_len == SEED_SET + 3 + len(weak)
+    ref = scorer.get_weakly_labeled_data(bundle, remaining, 4.3, entropies)
+    for p, target in weak.items():
+        np.testing.assert_array_equal(target, ref[p])
