@@ -63,7 +63,23 @@
    the re-scored entropies; then the confidence, margin and fusion
    queries on round 0's best.ckpt against a re-score, and the CEAL query
    images/s.
-9. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+9. The remaining selection modes, each phase with its launch counts set
+   to 0 just before and read just after: the MC-noise queries
+   (`noise_image`, `noise_feature`, `noise_variance` on DeepLab: B1 80 /
+   80 / 160; `noise_feature` on ENet: B2 60), each timed 3 times, its
+   picks the same every run and the top 5 of its re-scored scores, batch
+   0 re-scored with the kernel's plain version swapped in (B1 bit-equal,
+   B2 the vote bar) and one batch's sweep profiled; two rounds of region
+   `noise_variance` (B1 160, boxes equal the device and host NMS on a
+   re-score); one round each of `coreset` (no launch) and
+   `variance_representative` (B1 only in its MC stage), the picks equal
+   to a re-run on best.ckpt; k-center greedy ((2975, 2736), 150 picks)
+   and max-representative (47,600 x 1,898 x 304, 949 picks) on seeded
+   features, timed 3 times with peak memory, picks equal to the CPU's;
+   an `accuracy_labels` query (no launch, counts equal a recount, the
+   pick their top 5) and an `accuracy_eval` consumer round replaying the
+   AL round's selections.txt.
+10. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -73,6 +89,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import random
@@ -223,6 +240,24 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Both kernels' wrappers replaced by their plain versions for the
+    length of a ``with`` block: a re-score "with the fused kernels off",
+    the same arithmetic in tensor ops on the same tensors. Launch counts
+    are not read inside."""
+    from deep_active_semantic_segmentation_torch.ops import tconv_votes as tv
+    from deep_active_semantic_segmentation_torch.ops import upsample_argmax as ua
+
+    saved = ua.upsample4_argmax, tv.tconv2x_argmax_parity_major
+    ua.upsample4_argmax = lambda x, out_size=None: ua.upsample4_argmax_plain(x)
+    tv.tconv2x_argmax_parity_major = tv.tconv2x_argmax_parity_major_plain
+    try:
+        yield
+    finally:
+        ua.upsample4_argmax, tv.tconv2x_argmax_parity_major = saved
 
 
 def bound(bytes_moved: float, flops: float, flops_per_s: float):
@@ -565,7 +600,7 @@ def main_path_phase(torch, seed: int, arch: str, store, paths):
 
     # the same query's scores (same seed -> same masks): finite, and
     # they rank as the entry point ranked
-    scorer = sel._entropy_scorer(bundle, 0)
+    scorer = sel._scorer(bundle, 0)
     scores = collect_scores(
         sel._paths_loader(paths, include_labels=True,
                           labels_as_mask=NUM_CLASSES),
@@ -952,8 +987,7 @@ def al_round_phase(torch, seed: int, root: Path, paths):
     remaining = [p for p in paths if p.decode() not in set(sel[0])]
     sel_obj = get_active_selection_class("variance", NUM_CLASSES, store,
                                          cfg.crop_size, cfg.batch_size, device=DEVICE)
-    scorer = sel_obj._entropy_scorer(ModelBundle(model, torch.device(DEVICE)),
-                                     cfg.seed + 0)
+    scorer = sel_obj._scorer(ModelBundle(model, torch.device(DEVICE)), cfg.seed + 0)
     scores = collect_scores(sel_obj._paths_loader(remaining, include_labels=True,
                                                   labels_as_mask=NUM_CLASSES),
                             lambda b: mean_over_pixels(scorer(b)))
@@ -1045,14 +1079,16 @@ def nms_device_vs_host(torch, norm, region_size: int, count: int):
     return dev, host, device_ms
 
 
-def region_round_phase(torch, seed: int, root: Path, paths):
-    """Two rounds of ``variance`` on ``active_cityscapes_region`` through
-    ``run_active_loop``, launch counts set to 0 just before and read just
-    after: B1 20 launches per scoring batch over the whole pool (4
-    batches), no B2; selections.txt in the JAX format with the seed images'
-    whole boxes; the labeled pixels grow by count * 129²; the loop's boxes
-    equal the device NMS and the host NMS on the same normalized maps,
-    re-scored from round 0's best.ckpt with the loop's seed."""
+def region_round_phase(torch, seed: int, root: Path, paths, mode: str = "variance"):
+    """Two rounds of ``mode`` (``variance`` or ``noise_variance``) on
+    ``active_cityscapes_region`` through ``run_active_loop``, launch counts
+    set to 0 just before and read just after: B1 20 launches per scoring
+    batch and sweep over the whole pool (4 batches; ``noise_variance``
+    runs a feature-noise and a dropout sweep per batch), no B2;
+    selections.txt in the JAX format with the seed images' whole boxes;
+    the labeled pixels grow by count * 129²; the loop's boxes equal the
+    device NMS and the host NMS on the same normalized maps, re-scored
+    from round 0's best.ckpt with the loop's seed."""
     from deep_active_semantic_segmentation_torch import constants
     from deep_active_semantic_segmentation_torch.config import parse_cli
     from deep_active_semantic_segmentation_torch.data import pools
@@ -1067,7 +1103,10 @@ def region_round_phase(torch, seed: int, root: Path, paths):
         region_score_maps)
     from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
 
-    cfg = parse_cli(REGION_ARGV + ["--seed", str(seed), "--checkname", "region"]).finalize()
+    checkname = "region" if mode == "variance" else f"region_{mode}"
+    cfg = parse_cli(REGION_ARGV + ["--seed", str(seed), "--checkname", checkname,
+                                   "--active-selection-mode", mode]).finalize()
+    sweeps = NOISE_MODES[mode][0] if mode in NOISE_MODES else ("dropout",)
     crop = cfg.crop_size
     requested = math.ceil(cfg.active_batch_size * crop ** 2 / REGION ** 2)
     grown = []
@@ -1086,16 +1125,17 @@ def region_round_phase(torch, seed: int, root: Path, paths):
     sel = list(read_selections(root / "runs" / cfg.dataset / cfg.checkname).values())
     n_boxes = [sum(len(b) for _, b in rows) for rows in sel]
     count = n_boxes[1] - n_boxes[0]
-    print(f"region round through run_active_loop: {wall_s:.3f} s for 2 rounds; "
+    print(f"region {mode} round through run_active_loop: {wall_s:.3f} s for 2 rounds; "
           f"boxes {count} of {requested} requested; launches {json.dumps(counts)}; "
           "round 0 train / validate / select s: "
           f"{rounds[0]['train']:.3f} / {rounds[0]['validate']:.3f} / "
           f"{rounds[0]['select']:.3f}; round 1 train / validate s: "
           f"{rounds[1]['train']:.3f} / {rounds[1]['validate']:.3f}", flush=True)
     n_batches = -(-POOL // cfg.batch_size)
-    check(counts["upsample4_argmax"] == constants.MC_STEPS * n_batches,
+    expected = constants.MC_STEPS * n_batches * len(sweeps)
+    check(counts["upsample4_argmax"] == expected,
           f"B1 launched {counts['upsample4_argmax']} times in the region round, "
-          f"expected {constants.MC_STEPS * n_batches} (the whole pool is scored)")
+          f"expected {expected} (the whole pool is scored)")
     check(counts["tconv2x_argmax_parity_major"] == 0, "no B2 launch in the region round")
     check(sel[0] == [(p, [(0, 0, crop, crop)]) for p, _ in sel[0]]
           and len(sel[0]) == SEED_SET, "round 0 holds the seed images' whole boxes")
@@ -1114,10 +1154,11 @@ def region_round_phase(torch, seed: int, root: Path, paths):
     images = list(store.keys())
     seeded = {p.encode() for p, _ in sel[0]}
     existing = [[(0, 0, crop, crop)] if p in seeded else [] for p in images]
-    sel_obj = get_active_selection_class("variance", NUM_CLASSES, store, crop,
+    sel_obj = get_active_selection_class(mode, NUM_CLASSES, store, crop,
                                          cfg.batch_size, device=DEVICE)
+    bundle = ModelBundle(model, torch.device(DEVICE))
     norm = region_score_maps(
-        sel_obj._entropy_scorer(ModelBundle(model, torch.device(DEVICE)), cfg.seed + 0),
+        sel_obj._scorer(bundle, cfg.seed + 0, sweeps),
         sel_obj._paths_loader(images, include_labels=True, labels_as_mask=NUM_CLASSES),
         existing, REGION)
     check(tuple(norm.shape) == (POOL, crop - REGION + 1, crop - REGION + 1)
@@ -1171,7 +1212,7 @@ def pascal_region_phase(torch, seed: int, root: Path):
     check(all(n == 0 for n in counts.values()),
           f"the letterboxed sweep runs unfused: {counts}")
     norm = region_score_maps(
-        sel._entropy_scorer(bundle, seed),
+        sel._scorer(bundle, seed),
         sel._paths_loader(paths, include_labels=True, labels_as_mask=PASCAL_CLASSES),
         existing, REGION)
     check(tuple(norm.shape) == (len(paths), base - REGION + 1, base - REGION + 1),
@@ -1377,6 +1418,376 @@ def ceal_round_phase(torch, seed: int, root: Path, paths):
             "query_images_per_s": len(paths) / query_s}
 
 
+# ----------------------------------------- MC-noise, core-set, max-subset, oracle
+
+# mode -> (the sweeps of one scoring batch, the selector's entry point)
+NOISE_MODES = {
+    "noise_image": (("input",), "get_vote_entropy_for_images_with_input_noise"),
+    "noise_feature": (("feature",), "get_vote_entropy_for_images_with_feature_noise"),
+    "noise_variance": (("feature", "dropout"),
+                       "get_vote_entropy_for_batch_with_noise_and_vote_entropy"),
+}
+# timed runs of each noise query over the pool (median and spread)
+NOISE_QUERY_RUNS = 3
+# greedy selection at the canonical sizes: k-center over the 2975 Cityscapes
+# train images' pooled decoder features at 513² (3 x 3 x 304: a 129² map
+# pooled 64 / 32), 150 labeled and 150 picked; max-subset over the
+# 2975 x 16 region-grid tiles (129² regions on the 129² map: 32-cell
+# tiles, 4 x 4) x 304 against the doubled candidates of a 60-image budget
+# (ceil(60 * 513² / 129²) = 949 boxes, 1898 candidates), picking 949
+KCENTER_N, KCENTER_D, KCENTER_SEEDS, KCENTER_PICKS = 2975, 3 * 3 * 304, 150, 150
+MAXREP_M, MAXREP_K, MAXREP_D, MAXREP_PICKS = 2975 * 16, 2 * 949, 304, 949
+# max-subset picks held against the CPU (a greedy prefix; the CPU run of all
+# 949 would take minutes); two candidates whose scores sit this close may
+# swap between the card's and the CPU's f32 sums
+MAXREP_CHECKED, GREEDY_SCORE_RTOL = 64, 1e-5
+GREEDY_RUNS = 3
+
+
+def noise_query_phase(torch, seed: int, arch: str, store, paths, modes):
+    """Each MC-noise query of ``modes`` through its selector's entry point
+    (PATHS geometry, fresh weights from ``seed``), timed NOISE_QUERY_RUNS
+    times with the launch counts set to 0 just before each and read just
+    after: the path's kernel 20 launches per scoring batch and sweep, the
+    other none; the same picks every run; finite scores whose top 5 is
+    the pick; batch 0 re-scored with the kernel's plain version in its
+    place under the same generator states (B1: equal bit for bit; B2:
+    >= 99.5% of the entropy pixels equal, the vote bar); the device
+    kernels of one batch's sweep."""
+    from deep_active_semantic_segmentation_torch import constants
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.ops.entropy import mean_over_pixels
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+    from deep_active_semantic_segmentation_torch.selection.base import (
+        collect_scores, rank_descending)
+
+    cfg = PATHS[arch]
+    crop, batch_size, kernel = cfg["crop"], cfg["batch"], cfg["kernel"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = build_model(arch, NUM_CLASSES, device=DEVICE, generator=gen, **cfg["build"])
+    bundle = ModelBundle(model, torch.device(DEVICE))
+    n_batches = -(-len(paths) // batch_size)
+    out = {}
+    for mode in modes:
+        sweeps, entry = NOISE_MODES[mode]
+        sel = get_active_selection_class(mode, NUM_CLASSES, store, crop, batch_size,
+                                         device=DEVICE)
+        query = getattr(sel, entry)
+        query(bundle, paths[:batch_size], 1, seed=1)       # warm-up
+        torch.cuda.synchronize()
+        runs, counts, tops = [], [], []
+        for _ in range(NOISE_QUERY_RUNS):
+            reset_counts()
+            t0 = time.perf_counter()
+            tops.append(query(bundle, paths, 5, seed=0))
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            counts.append(read_counts())
+        expected = constants.MC_STEPS * n_batches * len(sweeps)
+        rates = sorted(len(paths) / r for r in runs)
+        print(f"{arch} {mode} query: {len(paths)} images, median of {NOISE_QUERY_RUNS} "
+              f"{float(np.median(runs)):.3f} s ({rates[len(rates) // 2]:.2f} images/s; "
+              f"min {rates[0]:.2f}, max {rates[-1]:.2f}); launches per run "
+              f"{json.dumps(counts)} on {card_line()}", flush=True)
+        for c in counts:
+            check(c[kernel] == expected, f"{arch} {mode}: {kernel} launched "
+                                         f"{c[kernel]} times, expected {expected}")
+            check(all(n == 0 for name, n in c.items() if name != kernel),
+                  f"{arch} {mode}: no other kernel launched: {c}")
+        check(all(t == tops[0] for t in tops) and len(set(tops[0])) == 5,
+              f"{arch} {mode}: 5 distinct picks, the same every run")
+
+        scorer = sel._scorer(bundle, 0, sweeps)
+        scores = collect_scores(
+            sel._paths_loader(paths, include_labels=True, labels_as_mask=NUM_CLASSES),
+            lambda b: mean_over_pixels(scorer(b)))
+        check(len(scores) == len(paths) and bool(np.isfinite(scores).all())
+              and rank_descending(scores, list(paths), 5) == tops[0],
+              f"{arch} {mode}: finite scores whose top 5 is the pick")
+
+        batch = next(iter(sel._paths_loader(paths[:batch_size], include_labels=True,
+                                            labels_as_mask=NUM_CLASSES)))
+        fused = sel._scorer(bundle, 0, sweeps)(batch)
+        with plain_kernels():
+            plain = sel._scorer(bundle, 0, sweeps)(batch)
+        check(tuple(fused.shape) == (batch_size, crop, crop)
+              and bool(torch.isfinite(fused).all()), f"{arch} {mode}: entropy maps")
+        equal = (fused == plain).float().mean().item()
+        mean_abs = (fused - plain).abs().mean().item()
+        print(f"{arch} {mode}: batch 0 re-scored with the plain {kernel}: equal "
+              f"{equal:.6f}, mean |d| {mean_abs:.3e}", flush=True)
+        if arch == "deeplab":
+            check(torch.equal(fused, plain), f"{mode}: B1 and its plain version give "
+                                             "the same entropy maps bit for bit")
+        else:
+            check(equal >= 0.995 and mean_abs < 0.02,
+                  f"{mode}: B2 and its plain version agree under the vote bar")
+        out[mode] = {
+            "sweeps": len(sweeps), "launches": counts[0][kernel], "counts": counts,
+            "query_runs_s": runs, "images_per_s": len(paths) / float(np.median(runs)),
+            "images_per_s_min_max": [rates[0], rates[-1]],
+            "plain_rescore": {"equal": equal, "mean_abs": mean_abs},
+            "profile": profile_sweep(torch, lambda: sel._scorer(bundle, 0, sweeps)(batch),
+                                     f"one {arch} {mode} batch ({len(sweeps)} sweep(s))"),
+            "top5": [p.decode() for p in tops[0]]}
+    return out
+
+
+def representative_rounds_phase(torch, seed: int, root: Path, paths):
+    """One round each of ``coreset`` and ``variance_representative`` on
+    ``active_cityscapes_image`` through ``run_active_loop``, launch counts
+    set to 0 just before and read just after: B1 only in the MC stage of
+    ``variance_representative`` (20 per scoring batch), B2 never; the
+    round's picks equal a re-run of the selectors on round 0's best.ckpt.
+    ``variance_representative`` asks for 3 images (the config doubles it
+    to 6 MC candidates; 5 would leave the 20-image pool a single round)."""
+    from deep_active_semantic_segmentation_torch import constants
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.engine.active_loop import (
+        run_active_loop)
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class, get_max_subset_active_selector)
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
+
+    store = DirectoryStore(str(root / "cityscapes" / "train"))
+    out = {}
+    for mode, k in (("coreset", 5), ("variance_representative", 3)):
+        cfg = parse_cli(ROUND_ARGV + ["--seed", str(seed), "--checkname", mode,
+                                      "--active-selection-mode", mode,
+                                      "--active-batch-size", str(k)]).finalize()
+        reset_counts()
+        t0 = time.perf_counter()
+        history = run_active_loop(cfg, dataset_root=str(root),
+                                  runs_root=str(root / "runs"), device=DEVICE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        exp = root / "runs" / cfg.dataset / mode
+        sel = [[p for p, _ in rows] for rows in read_selections(exp).values()]
+        rounds = [history[f]["seconds"] for f in sorted(history)]
+        print(f"{mode} round through run_active_loop: {wall_s:.3f} s for 2 rounds; "
+              f"selections {[len(x) for x in sel]}; launches {json.dumps(counts)}; "
+              f"round 0 train / validate / select s: {rounds[0]['train']:.3f} / "
+              f"{rounds[0]['validate']:.3f} / {rounds[0]['select']:.3f}", flush=True)
+        new = sel[1][SEED_SET:]
+        check(len(sel) == 2 and sel[1][:SEED_SET] == sel[0] and len(new) == k
+              and len(set(sel[1])) == len(sel[1]), f"{mode}: selections 10 then {10 + k}")
+        n_mc = -(-(POOL - SEED_SET) // cfg.batch_size) if mode != "coreset" else 0
+        check(counts["upsample4_argmax"] == constants.MC_STEPS * n_mc
+              and counts["tconv2x_argmax_parity_major"] == 0,
+              f"{mode}: B1 {constants.MC_STEPS * n_mc} launches (MC stage only), no B2: "
+              f"{counts}")
+
+        model = build_model("deeplab", NUM_CLASSES, mc_dropout=cfg.mc_dropout,
+                            device=DEVICE)
+        load_checkpoint(str(sorted(exp.glob("run_*"))[0] / "best.ckpt"), model,
+                        device=DEVICE)
+        bundle = ModelBundle(model, torch.device(DEVICE))
+        labeled = [p.encode() for p in sel[0]]
+        remaining = [p for p in paths if p not in set(labeled)]
+        selector = get_active_selection_class(mode, NUM_CLASSES, store, cfg.crop_size,
+                                              cfg.batch_size, device=DEVICE)
+        if mode == "coreset":
+            again = selector.get_k_center_greedy_selections(k, bundle, remaining, labeled)
+        else:
+            candidates = selector.get_vote_entropy_for_images(
+                bundle, remaining, cfg.active_batch_size, seed=cfg.seed + 0)
+            again = get_max_subset_active_selector(
+                store, cfg.crop_size, cfg.batch_size, device=DEVICE
+            ).get_representative_images(bundle, list(store.keys()), candidates)
+        check([p.decode() for p in again] == new,
+              f"{mode}: the round's picks equal a re-run on best.ckpt")
+        out[mode] = {"wall_s": wall_s, "counts": counts, "selections": [len(x) for x in sel],
+                     "rounds": [history[f] for f in sorted(history)]}
+    return out
+
+
+def greedy_phase(torch, seed: int):
+    """k-center greedy and max-representative alone at the canonical sizes
+    on seeded features (clustered and non-negative, as decoder features
+    are), TF32 off as the selectors run them: ms (median of GREEDY_RUNS,
+    with the runs), peak memory above the start, and the picks against the
+    same function on the CPU: all of them for k-center, the first
+    MAXREP_CHECKED for max-subset. A mismatch fails unless the two
+    candidates' scores at that step (recomputed in f64) are within
+    GREEDY_SCORE_RTOL of each other; then that case is printed and the
+    comparison stops there (the greedy paths part)."""
+    from deep_active_semantic_segmentation_torch.ops import distance
+    from deep_active_semantic_segmentation_torch.selection.kernels import (
+        _deterministic_precision)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def features(n, d, clusters=64):
+        centers = torch.rand(clusters, d, generator=gen, device=DEVICE) * 2
+        idx = torch.randint(0, clusters, (n,), generator=gen, device=DEVICE)
+        return torch.relu(centers[idx] + torch.randn(n, d, generator=gen, device=DEVICE))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs = []
+        for _ in range(GREEDY_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            picked = fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return picked, runs, torch.cuda.max_memory_allocated() - base
+
+    def first_mismatch(dev, cpu):
+        return next((i for i, (a, b) in enumerate(zip(dev, cpu)) if a != b), None)
+
+    out = {}
+    with _deterministic_precision():
+        feats = features(KCENTER_N, KCENTER_D)
+        mask = torch.zeros(KCENTER_N, dtype=torch.bool, device=DEVICE)
+        mask[torch.randperm(KCENTER_N, generator=gen, device=DEVICE)[:KCENTER_SEEDS]] = True
+        dev, runs, peak = timed(lambda: distance.kcenter_greedy(feats, mask, KCENTER_PICKS))
+        dev = dev.tolist()
+        t0 = time.perf_counter()
+        cpu = distance.kcenter_greedy(feats.cpu(), mask.cpu(), KCENTER_PICKS).tolist()
+        cpu_s = time.perf_counter() - t0
+        i = first_mismatch(dev, cpu)
+        near = None
+        if i is not None:
+            x = feats.cpu().double()
+            centers = x[mask.cpu() | torch.isin(torch.arange(KCENTER_N),
+                                                torch.tensor(dev[:i], dtype=torch.long))]
+            a, b = (torch.cdist(x[j:j + 1], centers).min().item() for j in (dev[i], cpu[i]))
+            near = {"step": i, "device": dev[i], "cpu": cpu[i], "scores": [a, b]}
+            print(f"k-center: pick {i} differs (card {dev[i]}, CPU {cpu[i]}); min "
+                  f"distances {a!r} / {b!r}", flush=True)
+            check(abs(a - b) <= GREEDY_SCORE_RTOL * max(a, b),
+                  "k-center: a differing pick is a near-tie")
+        print(f"k-center greedy, ({KCENTER_N}, {KCENTER_D}) f32, {KCENTER_SEEDS} seeds, "
+              f"{KCENTER_PICKS} picks: median {float(np.median(runs)):.3f} ms (runs "
+              f"{[round(r, 3) for r in runs]}), peak memory above the start "
+              f"{peak / 2**20:.1f} MiB; picks equal the CPU's: "
+              f"{'all' if i is None else i}; CPU run {cpu_s:.3f} s on {card_line()}",
+              flush=True)
+        out["kcenter"] = {"shape": [KCENTER_N, KCENTER_D], "ms_runs": runs,
+                          "ms": float(np.median(runs)), "peak_bytes": peak,
+                          "cpu_s": cpu_s, "near_tie": near}
+        del feats, mask
+
+        pool = features(MAXREP_M, MAXREP_D)
+        cand = features(MAXREP_K, MAXREP_D)
+        dev, runs, peak = timed(lambda: distance.max_representative(pool, cand,
+                                                                    MAXREP_PICKS))
+        dev = dev.tolist()
+        check(len(set(dev)) == MAXREP_PICKS, "max-subset: distinct picks")
+        t0 = time.perf_counter()
+        cpu = distance.max_representative(pool.cpu(), cand.cpu(), MAXREP_CHECKED).tolist()
+        cpu_s = time.perf_counter() - t0
+        i = first_mismatch(dev[:MAXREP_CHECKED], cpu)
+        near = None
+        if i is not None:
+            x, c = pool.cpu().double(), cand.cpu().double()
+            min_d = (torch.cdist(x, c[dev[:i]]).min(dim=1).values if i
+                     else torch.full((MAXREP_M,), float("inf"), dtype=torch.float64))
+            a, b = (torch.minimum(min_d, torch.cdist(x, c[j:j + 1])[:, 0]).sum().item()
+                    for j in (dev[i], cpu[i]))
+            near = {"step": i, "device": dev[i], "cpu": cpu[i], "scores": [a, b]}
+            print(f"max-subset: pick {i} differs (card {dev[i]}, CPU {cpu[i]}); "
+                  f"scores {a!r} / {b!r}", flush=True)
+            check(abs(a - b) <= GREEDY_SCORE_RTOL * max(a, b),
+                  "max-subset: a differing pick is a near-tie")
+        print(f"max-representative, M {MAXREP_M} x K {MAXREP_K} x {MAXREP_D} f32, "
+              f"{MAXREP_PICKS} picks: median {float(np.median(runs)):.3f} ms (runs "
+              f"{[round(r, 3) for r in runs]}), peak memory above the start "
+              f"{peak / 2**30:.3f} GiB; first {MAXREP_CHECKED} picks equal the CPU's: "
+              f"{'all' if i is None else i}; CPU run of {MAXREP_CHECKED} {cpu_s:.3f} s",
+              flush=True)
+        out["max_representative"] = {"shape": [MAXREP_M, MAXREP_K, MAXREP_D],
+                                     "ms_runs": runs, "ms": float(np.median(runs)),
+                                     "peak_bytes": peak, "cpu_s": cpu_s,
+                                     "near_tie": near}
+    return out
+
+
+def oracle_phase(torch, seed: int, root: Path, paths):
+    """The oracle modes on the AL-round phase's run: an ``accuracy_labels``
+    query over the pool at 513² on its round 0 best.ckpt (launch counts
+    set to 0 just before, read just after: no B1 or B2), its counts equal
+    to a recount from the argmax of re-scored logits and its pick their
+    top 5; then one ``accuracy_eval`` consumer round through
+    ``run_active_loop`` watching that run's selections.txt (no launch),
+    its selections equal to the producer's, round by round."""
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.engine.active_loop import (
+        run_active_loop)
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+    from deep_active_semantic_segmentation_torch.selection import kernels
+    from deep_active_semantic_segmentation_torch.selection.base import rank_descending
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
+
+    cfg = parse_cli(ROUND_ARGV + ["--seed", str(seed), "--checkname", "consumer",
+                                  "--active-selection-mode", "accuracy_eval",
+                                  "--monitor-directory", "round"]).finalize()
+    runs_root = root / "runs"
+    producer = runs_root / cfg.dataset / "round"
+    model = build_model("deeplab", NUM_CLASSES, mc_dropout=True, device=DEVICE)
+    load_checkpoint(str(sorted(producer.glob("run_*"))[0] / "best.ckpt"), model,
+                    device=DEVICE)
+    bundle = ModelBundle(model, torch.device(DEVICE))
+    store = DirectoryStore(str(root / "cityscapes" / "train"))
+    sel = get_active_selection_class("accuracy_labels", NUM_CLASSES, store,
+                                     cfg.crop_size, cfg.batch_size, device=DEVICE)
+    sel.get_least_accurate_sample_using_labels(bundle, paths[:cfg.batch_size], 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    top = sel.get_least_accurate_sample_using_labels(bundle, paths, 5)
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(all(n == 0 for n in counts.values()), f"no B1 or B2 launch in accuracy_labels: "
+                                                f"{counts}")
+    recount, counted = [], []
+    for batch in sel._paths_loader(paths, include_labels=True):
+        with torch.inference_mode(), kernels._deterministic_precision():
+            pred = model(kernels.normalize_on_device(batch["image"])).argmax(dim=1)
+        label = batch["label"].long()
+        wrong = (label < NUM_CLASSES) & (pred != label)
+        recount.extend(wrong.sum(dim=(1, 2))[:batch["nvalid"]].tolist())
+        counted.extend(kernels.misprediction_counts(
+            model, batch["image"], batch["label"], NUM_CLASSES)[:batch["nvalid"]].tolist())
+    print(f"accuracy_labels query: {len(paths)} images in {query_s:.3f} s "
+          f"({len(paths) / query_s:.2f} images/s, TF32 off); launches "
+          f"{json.dumps(counts)}; counts {[int(c) for c in counted]}", flush=True)
+    check(counted == [float(c) for c in recount],
+          "misprediction counts equal a recount from the argmax of re-scored logits")
+    check(rank_descending(recount, list(paths), 5) == top,
+          "accuracy_labels picks the top 5 of the recount")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    run_active_loop(cfg, dataset_root=str(root), runs_root=str(runs_root), device=DEVICE)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    eval_counts = read_counts()
+    produced = read_selections(producer)
+    consumed = read_selections(runs_root / cfg.dataset / "consumer")
+    print(f"accuracy_eval consumer: {wall_s:.3f} s for 2 rounds; run dirs "
+          f"{list(consumed)}; launches {json.dumps(eval_counts)}", flush=True)
+    check(all(n == 0 for n in eval_counts.values()),
+          f"no B1 or B2 launch in accuracy_eval: {eval_counts}")
+    check(consumed == produced and len(consumed) == 2,
+          "the accuracy_eval consumer replays the producer's selections.txt")
+    return {"labels_query_s": query_s, "labels_counts": counts,
+            "eval_wall_s": wall_s, "eval_counts": eval_counts}
+
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1450,6 +1861,24 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         ceal = ceal_round_phase(torch, args.seed, tmp, paths)
         phase_s["ceal_round"] = time.perf_counter() - t0
+        noise = {}
+        for arch, modes in (("deeplab", list(NOISE_MODES)), ("enet", ["noise_feature"])):
+            t0 = time.perf_counter()
+            noise[arch] = noise_query_phase(torch, args.seed, arch, store, paths, modes)
+            phase_s[f"{arch}_noise_queries"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        region["cityscapes_noise_variance"] = region_round_phase(
+            torch, args.seed, tmp, paths, mode="noise_variance")
+        phase_s["region_noise_variance_round"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        representative = representative_rounds_phase(torch, args.seed, tmp, paths)
+        phase_s["coreset_and_representative_rounds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        greedy = greedy_phase(torch, args.seed)
+        phase_s["canonical_greedy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        oracle = oracle_phase(torch, args.seed, tmp, paths)
+        phase_s["oracle_modes"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -1462,6 +1891,18 @@ def main(argv=None) -> int:
         row["region_round_launches"] = region["cityscapes"]["counts"][row["name"]]
         row["pascal_region_launches"] = region["pascal"]["counts"][row["name"]]
         row["ceal_round_launches"] = ceal["counts"][row["name"]]
+        row["noise_query_launches"] = {
+            f"{arch} {mode}": r["counts"][0][row["name"]]
+            for arch, modes in noise.items() for mode, r in modes.items()}
+        check(all(r["counts"][0][row["name"]] > 0 for arch, modes in noise.items()
+                  if PATHS[arch]["kernel"] == row["name"] for r in modes.values()),
+              f"{row['name']} ran on its noise paths")
+        row["region_noise_variance_round_launches"] = (
+            region["cityscapes_noise_variance"]["counts"][row["name"]])
+        row["representative_round_launches"] = {
+            mode: r["counts"][row["name"]] for mode, r in representative.items()}
+        row["oracle_launches"] = (oracle["labels_counts"][row["name"]]
+                                  + oracle["eval_counts"][row["name"]])
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1470,7 +1911,8 @@ def main(argv=None) -> int:
              "sass_tensor_ops": sass, "phase_s": phase_s,
              "kernels": rows, "main_paths": paths_result,
              "training": training, "al_round": al_round, "region": region,
-             "ceal": ceal}, indent=1))
+             "ceal": ceal, "noise": noise, "representative": representative,
+             "greedy": greedy, "oracle": oracle}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}
                                   for row in rows]}), flush=True)

@@ -8,10 +8,11 @@ The host stream is one ``random.Random`` seeded with ``args.seed``; the
 pools' train transforms, the trainer's visualization pick and the
 random-mode scorer draw from it in the JAX package's order (which seeds
 the module-level ``random`` instead), so one seed gives both packages the
-same draws; the ``ceal_fusion`` shuffle draws from it too. Selection
-modes ported: ``random``, ``variance`` and the five ``ceal_*`` modes on
-image datasets, ``variance`` on region datasets; every other mode raises
-before training, naming its ROADMAP item.
+same draws; the ``ceal_fusion`` shuffle draws from it too. Every
+selection mode of ``active_train.py`` runs on image datasets;
+``variance``, ``variance_representative`` and ``noise_variance`` on region
+datasets too. The combinations the JAX loop cannot finish are refused
+before training.
 """
 
 from __future__ import annotations
@@ -22,24 +23,22 @@ import random
 import time
 from typing import Optional
 
-from deep_active_semantic_segmentation_torch import resolve_device
+from deep_active_semantic_segmentation_torch import constants, resolve_device
 from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
 from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
 from deep_active_semantic_segmentation_torch.selection import (
-    get_active_selection_class)
+    get_active_selection_class, get_max_subset_active_selector)
 from deep_active_semantic_segmentation_torch.utils.early_stop import (
     EarlyStopChecker)
 from deep_active_semantic_segmentation_torch.utils.saver import Saver
 from deep_active_semantic_segmentation_torch.utils.summaries import (
     TensorboardSummary)
 
-_NOT_PORTED = {
-    "variance_representative": "A10", "coreset": "A10",
-    "noise_image": "A11", "noise_feature": "A11", "noise_variance": "A11",
-    "accuracy_labels": "A13", "accuracy_eval": "A13",
-}
 _CEAL = ("ceal_confidence", "ceal_margin", "ceal_entropy", "ceal_fusion",
          "ceal_entropy_weakly_labeled")
+_MODES = ("random", "variance", "variance_representative", "coreset",
+          "noise_image", "noise_feature", "noise_variance", "accuracy_labels",
+          "accuracy_eval") + _CEAL
 _REGION_CAPABLE = ("random", "variance", "variance_representative",
                    "noise_variance", "accuracy_eval", "accuracy_labels")
 
@@ -48,24 +47,21 @@ def _check_mode(mode: str, dataset: str) -> None:
     """Refuse, before any training, what the loop cannot run: the JAX
     loop's up-front checks (its engine/active_loop.py:34-45; the reference
     asserts only at selection time, after a whole training round), then
-    the modes not ported yet, then ``random`` on region datasets, which
-    the JAX loop lists as region-capable but fails at its first selection
-    (ROADMAP C)."""
+    ``random``, ``accuracy_eval`` and ``accuracy_labels`` on region
+    datasets, which the JAX loop lists as region-capable but fails at its
+    first selection (ROADMAP C)."""
     region = dataset.endswith("_region")
     if mode == "coreset" and not dataset.endswith("_image"):
         raise AssertionError("only images supported for coreset approach")
     if region and mode not in _REGION_CAPABLE:
         raise NotImplementedError(f"selection mode '{mode}' does not support "
                                   "region datasets")
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(f"selection mode '{mode}' is not ported "
-                                  f"yet (ROADMAP {_NOT_PORTED[mode]})")
-    if region and mode == "random":
+    if region and mode in ("random", "accuracy_eval", "accuracy_labels"):
         raise NotImplementedError(
-            "selection mode 'random' on region datasets: the JAX loop reads "
+            f"selection mode '{mode}' on region datasets: the JAX loop reads "
             "the region pool's remaining_image_paths, which it does not have "
-            "(ROADMAP C, random on region datasets)")
-    if mode not in ("random", "variance") + _CEAL:
+            f"(ROADMAP C, {mode} on region datasets)")
+    if mode not in _MODES:
         raise NotImplementedError(mode)
 
 
@@ -97,6 +93,8 @@ def run_active_loop(args, dataset_root: Optional[str] = None,
     active_selector = get_active_selection_class(
         mode, nclass, training_set.store, args.crop_size, args.batch_size,
         device=device)
+    max_subset_selector = get_max_subset_active_selector(
+        training_set.store, args.crop_size, args.batch_size, device=device)
 
     total_iterations = min(
         len(training_set.image_paths) // args.active_batch_size - 1,
@@ -181,53 +179,63 @@ def run_active_loop(args, dataset_root: Optional[str] = None,
         # -- selection (active_train.py:440-527) --
         t0 = time.perf_counter()
         trainer.load_best_checkpoint()
-        _select(args, mode, active_selector, trainer.bundle, training_set,
-                selection_iter, rng)
+        _select(args, mode, active_selector, max_subset_selector,
+                trainer.bundle, training_set, selection_iter, rng, runs_root)
         seconds["select"] = time.perf_counter() - t0
 
     writer.close()
     return history
 
 
-def _select(args, mode, active_selector, bundle, training_set,
-            selection_iter: int, rng: random.Random) -> None:
+def _select(args, mode, active_selector, max_subset_selector, bundle,
+            training_set, selection_iter: int, rng: random.Random,
+            runs_root: Optional[str]) -> None:
     """One selection and the pool update (the JAX loop's dispatch,
-    engine/active_loop.py:152-231)."""
+    engine/active_loop.py:152-275)."""
     k = args.active_batch_size
-    if args.dataset.endswith("_region"):   # only `variance` (_check_mode)
+    seed = args.seed + selection_iter
+    if args.dataset.endswith("_region"):
+        # variance, variance_representative or noise_variance (_check_mode)
         print("Creating region maps..")
         regions, counts = active_selector.create_region_maps(
             bundle, training_set.image_paths,
             training_set.get_existing_region_maps(), args.active_region_size,
-            k, seed=args.seed + selection_iter)
-        print(f"Got {counts}/"
-              f"{math.ceil(k * args.crop_size ** 2 / args.active_region_size ** 2)}"
-              " regions")
+            k, seed=seed)
+        if mode == "variance_representative":
+            regions, counts = max_subset_selector.get_representative_regions(
+                bundle, training_set.image_paths, regions,
+                args.active_region_size)
+        if mode != "noise_variance":
+            print(f"Got {counts}/"
+                  f"{math.ceil(k * args.crop_size ** 2 / args.active_region_size ** 2)}"
+                  " regions")
         training_set.expand_training_set(
             regions, counts * args.active_region_size ** 2)
         return
     remaining = training_set.remaining_image_paths
     if mode == "random":
-        training_set.expand_training_set(
-            active_selector.get_random_uncertainity(remaining, k, rng=rng))
-    elif mode == "variance":
+        selected = active_selector.get_random_uncertainity(remaining, k, rng=rng)
+    elif mode in ("variance", "variance_representative"):
         print("Calculating entropies..")
-        training_set.expand_training_set(
-            active_selector.get_vote_entropy_for_images(
-                bundle, remaining, k, seed=args.seed + selection_iter))
+        selected = active_selector.get_vote_entropy_for_images(
+            bundle, remaining, k, seed=seed)
+        if mode == "variance_representative":
+            selected = max_subset_selector.get_representative_images(
+                bundle, training_set.image_paths, selected)
+    elif mode == "coreset":
+        selected = active_selector.get_k_center_greedy_selections(
+            k, bundle, remaining, training_set.current_image_paths)
     elif mode == "ceal_confidence":
-        training_set.expand_training_set(
-            active_selector.get_least_confident_samples(bundle, remaining, k))
+        selected = active_selector.get_least_confident_samples(bundle,
+                                                               remaining, k)
     elif mode == "ceal_margin":
-        training_set.expand_training_set(
-            active_selector.get_least_margin_samples(bundle, remaining, k))
+        selected = active_selector.get_least_margin_samples(bundle, remaining, k)
     elif mode == "ceal_entropy":
-        training_set.expand_training_set(
-            active_selector.get_maximum_entropy_samples(bundle, remaining, k)[0])
+        selected = active_selector.get_maximum_entropy_samples(bundle,
+                                                               remaining, k)[0]
     elif mode == "ceal_fusion":
-        training_set.expand_training_set(
-            active_selector.get_fusion_of_confidence_margin_entropy_samples(
-                bundle, remaining, k, rng=rng))
+        selected = active_selector.get_fusion_of_confidence_margin_entropy_samples(
+            bundle, remaining, k, rng=rng)
     elif mode == "ceal_entropy_weakly_labeled":
         selected, entropies = active_selector.get_maximum_entropy_samples(
             bundle, remaining, k)
@@ -240,5 +248,30 @@ def _select(args, mode, active_selector, bundle, training_set,
             weak_labels.pop(sample, None)
         training_set.expand_training_set(selected)
         training_set.add_weak_labels(weak_labels)
+        return
+    elif mode == "noise_image":
+        selected = active_selector.get_vote_entropy_for_images_with_input_noise(
+            bundle, remaining, k, seed=seed)
+    elif mode == "noise_feature":
+        selected = active_selector.get_vote_entropy_for_images_with_feature_noise(
+            bundle, remaining, k, seed=seed)
+    elif mode == "noise_variance":
+        selected = (active_selector
+                    .get_vote_entropy_for_batch_with_noise_and_vote_entropy(
+                        bundle, remaining, k, seed=seed))
+    elif mode == "accuracy_labels":
+        selected = active_selector.get_least_accurate_sample_using_labels(
+            bundle, remaining, k)
+    elif mode == "accuracy_eval":
+        # the producer run's selections.txt for the next percentage
+        # (active_train.py:513-527)
+        pct = round(training_set.get_next_est_fraction_of_labeled_data(k) * 100)
+        selections_file = os.path.join(runs_root or constants.RUNS,
+                                       args.dataset, args.monitor_directory,
+                                       f"run_{pct:04d}", "selections.txt")
+        print("Waiting for the next folder to be available..", selections_file)
+        selected = active_selector.wait_for_selected_samples(selections_file,
+                                                             remaining)
     else:
         raise NotImplementedError(mode)
+    training_set.expand_training_set(selected)

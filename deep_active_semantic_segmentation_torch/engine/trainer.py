@@ -15,7 +15,7 @@ visualization pick draws from the host stream ``rng`` (a
 JAX package's order.
 
 Not ported yet, each raising and naming its ROADMAP item: the two-headed
-accuracy predictor (``dual_head``, A13), ENet training (A12) and the
+accuracy predictor (``dual_head``, A13b), ENet training (A12) and the
 pretrained-backbone transplant (A14).
 """
 
@@ -55,7 +55,7 @@ class Trainer:
                  rng: Optional[random.Random] = None):
         if dual_head:
             raise NotImplementedError("the two-headed accuracy predictor is "
-                                      "not ported yet (ROADMAP A13)")
+                                      "not ported yet (ROADMAP A13b)")
         if args.architecture != "deeplab":
             raise NotImplementedError(
                 f"training '{args.architecture}' is not ported yet (ROADMAP "

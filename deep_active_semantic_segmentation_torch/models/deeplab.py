@@ -14,7 +14,13 @@ resolution, NCHW. Call-time flags mirror the JAX package's:
   deterministic backbone. With the same generator state the hoisted
   forward equals the monolithic one: the masks are drawn in the same
   order (backbone trailing, low-level, ASPP, decoder).
-* ``noisy_features`` — MC-noise, not ported yet (ROADMAP A11).
+* ``noisy_features`` — MC-noise: additive gaussian noise scaled by the
+  tensor's |mean| (``layers.feature_noise``) at the normalized input
+  (x0.05), the backbone outputs (x0.5 each) and the ASPP output (x0.5),
+  drawn from ``generator`` in that order. Refused with the backbone hoist
+  (input noise makes the backbone stochastic).
+* ``return_features`` — also return the decoder's 304-channel concat
+  (the core-set / max-subset feature tap).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch.nn as nn
 from deep_active_semantic_segmentation_torch.models.aspp import ASPP
 from deep_active_semantic_segmentation_torch.models.backbone import build_backbone
 from deep_active_semantic_segmentation_torch.models.decoder import Decoder
+from deep_active_semantic_segmentation_torch.models.layers import feature_noise
 from deep_active_semantic_segmentation_torch.ops.interpolate import (
     resize_bilinear_align_corners)
 
@@ -48,24 +55,37 @@ class DeepLab(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 noisy_features: bool = False,
                 upsample_logits: bool = True,
+                return_features: bool = False,
                 backbone_only: bool = False,
                 backbone_features=None):
-        if noisy_features:
-            raise NotImplementedError("noisy_features (MC-noise) is not "
-                                      "ported yet (ROADMAP A11)")
         if use_dropout is None:
             use_dropout = self.training
         if use_dropout and generator is None:
             raise ValueError("dropout needs an explicit torch.Generator")
         gen = generator if use_dropout else None
 
+        if noisy_features:
+            if generator is None:
+                raise ValueError("noisy_features needs an explicit "
+                                 "torch.Generator")
+            if backbone_only or backbone_features is not None:
+                raise ValueError("backbone hoist is incompatible with "
+                                 "noisy_features (stochastic input noise)")
+            x = feature_noise(x, 0.05, generator)
         if backbone_only:
             return self.backbone(x, features_only=True)
         y, low_level_feat = self.backbone(x, gen,
                                           precomputed=backbone_features)
+        if noisy_features:
+            y = feature_noise(y, 0.5, generator)
+            low_level_feat = feature_noise(low_level_feat, 0.5, generator)
         y = self.aspp(y, gen)
-        low_res_logits, _ = self.decoder(y, low_level_feat, gen)
-        if not upsample_logits:
-            return low_res_logits
-        return resize_bilinear_align_corners(low_res_logits, x.shape[2],
-                                             x.shape[3])
+        if noisy_features:
+            y = feature_noise(y, 0.5, generator)
+        logits, features = self.decoder(y, low_level_feat, gen)
+        if upsample_logits:
+            logits = resize_bilinear_align_corners(logits, x.shape[2],
+                                                   x.shape[3])
+        if return_features:
+            return logits, features
+        return logits

@@ -34,7 +34,9 @@ Call-time flags mirror the JAX package's:
   feeds it back in. That dropout is the first draw both ways, so with the
   same generator state the hoisted forward equals the monolithic one.
 * ``return_features`` — also return the stage-3 encoder output.
-* ``noisy_features`` — MC-noise, not ported yet (ROADMAP A11).
+* ``noisy_features`` — MC-noise: one ``layers.feature_noise`` site after
+  stage 3 (x0.5), drawn from ``generator`` (the returned stage-3
+  features are the noise-free ones, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deep_active_semantic_segmentation_torch.models.layers import (
-    ChannelDropout, activation, batch_norm, conv)
+    ChannelDropout, activation, batch_norm, conv, feature_noise)
 
 
 def max_pool_with_indices(x: torch.Tensor):
@@ -297,13 +299,12 @@ class ENet(nn.Module):
                 upsample_logits: bool = True,
                 prefix_only: bool = False,
                 prefix_features=None):
-        if noisy_features:
-            raise NotImplementedError("noisy_features (MC-noise) is not "
-                                      "ported yet (ROADMAP A11)")
         if use_dropout is None:
             use_dropout = self.training
         if use_dropout and generator is None:
             raise ValueError("dropout needs an explicit torch.Generator")
+        if noisy_features and generator is None:
+            raise ValueError("noisy_features needs an explicit torch.Generator")
         gen = generator if use_dropout else None
 
         if prefix_features is None:
@@ -319,6 +320,8 @@ class ENet(nn.Module):
         for name in self.stage23:
             y = getattr(self, name)(y, gen)
         features = y
+        if noisy_features:
+            y = feature_noise(y, 0.5, generator)
 
         y = self.upsample4_0(y, sel2, gen)
         y = self.regular4_1(y, gen)

@@ -12,7 +12,7 @@ from deep_active_semantic_segmentation_torch.models.deeplab import DeepLab
 from deep_active_semantic_segmentation_torch.models.enet import ENet
 from deep_active_semantic_segmentation_torch.models.layers import init_weights
 
-_NOT_PORTED = {"unet": "A13", "accuracy_predictor": "A13", "fastscnn": "A14"}
+_NOT_PORTED = {"unet": "A13b", "accuracy_predictor": "A13b", "fastscnn": "A14"}
 
 
 def build_model(architecture: str, num_classes: int, backbone: str = "mobilenet",

@@ -13,6 +13,9 @@
   (image, channel), survivors scaled by 1/(1-p)) with the draw taken from
   an explicit ``torch.Generator`` on the tensor's device, so MC-dropout
   masks are reproducible per (seed, batch).
+* ``feature_noise`` — the MC-noise hook: additive gaussian noise scaled
+  by |mean(x)| over the whole batch tensor, drawn from an explicit
+  generator.
 * ``fixed_padding`` (TF-style SAME pad, reference
   models/backbone/mobilenet.py:23-30). ReLU6 is torch's ``nn.ReLU6``.
 """
@@ -99,3 +102,22 @@ def fixed_padding(x: torch.Tensor, kernel_size: int, dilation: int) -> torch.Ten
     beg = pad_total // 2
     end = pad_total - beg
     return F.pad(x, (beg, end, beg, end))
+
+
+def noise_scale(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """|mean(x)| * factor as a 0-d f32 tensor: the mean over the WHOLE
+    tensor, batch included (a padded batch's duplicates too, as in the JAX
+    package), formed in f32 whatever x's dtype."""
+    return x.float().mean().abs() * factor
+
+
+def feature_noise(x: torch.Tensor, factor: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """x + sigma * N(0, 1), sigma = ``noise_scale(x, factor)`` (the JAX
+    package's ``models/layers.py::feature_noise``, the reference's
+    noisy-features hook, models/deeplab.py:39-56). The draw is f32 from
+    ``generator`` whatever x's dtype, so f32 and bf16 forwards from one
+    generator state see the same noise."""
+    z = torch.randn(x.shape, dtype=torch.float32, device=x.device,
+                    generator=generator)
+    return x + (noise_scale(x, factor) * z).to(x.dtype)

@@ -1,14 +1,17 @@
 """Batch scoring computations shared by the selectors (parity: the JAX
-package's selection/kernels.py: MC-dropout on DeepLab and ENet, and the
-deterministic CEAL scores and weak labels).
+package's selection/kernels.py: the MC sweeps — dropout, input noise,
+feature noise — on DeepLab and ENet, the deterministic CEAL scores and
+weak labels, the core-set / max-subset feature taps and the oracle's
+misprediction counts).
 
 One call scores a whole batch on the device and returns (B, H, W) maps.
-The MC sweep runs the deterministic part of the network once per batch
-(DeepLab's backbone; ENet's initial block and ``downsample1_0`` up to its
-dropout), then ``num_steps`` dropout forwards of the rest. Each step's
-votes go into a compact uint8 stack, and the vote entropy is computed
-once at the end. DeepLab votes through kernel B1 (``upsample4_argmax``)
-on decoder-resolution logits, (S, B, H, W); ENet through kernel B2
+The MC-dropout sweep runs the deterministic part of the network once per
+batch (DeepLab's backbone; ENet's initial block and ``downsample1_0`` up
+to its dropout), then ``num_steps`` dropout forwards of the rest; the
+noise sweeps run the whole forward each step. Each step's votes go into a
+compact uint8 stack, and the vote entropy is computed once at the end.
+DeepLab votes through kernel B1 (``upsample4_argmax``) on
+decoder-resolution logits, (S, B, H, W); ENet through kernel B2
 (``tconv2x_argmax_parity_major``) on its stage-5 features, parity-major
 (S, B, 4, H/2, W/2), with the entropy map interleaved to (B, H, W) once.
 """
@@ -24,6 +27,8 @@ import torch
 from deep_active_semantic_segmentation_torch.ops import entropy as ent_ops
 from deep_active_semantic_segmentation_torch.ops import tconv_votes as tv
 from deep_active_semantic_segmentation_torch.ops import upsample_argmax as ua
+from deep_active_semantic_segmentation_torch.ops.interpolate import (
+    resize_bilinear_align_corners)
 
 # ImageNet normalization constants (data/transforms.py IMAGENET_MEAN/STD)
 _NORM_MEAN = (0.485, 0.456, 0.406)
@@ -93,33 +98,52 @@ def _deterministic_precision():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+def _step_votes(model, out: torch.Tensor, fused: bool, H: int, W: int):
+    """One MC step's votes from the tail output of a forward run with
+    ``upsample_logits=False``: DeepLab's decoder-resolution logits through
+    B1 at an exact 4x (else the model's own align-corners upsample and an
+    argmax), (B, H, W); ENet's stage-5 features through B2 at an exact 2x,
+    parity-major (B, 4, H/2, W/2) (else the model's transposed-conv
+    classifier and an argmax, (B, H, W))."""
+    if model.model_name == "deeplab":
+        if fused and ua.supports(out.shape[2:], (H, W)):
+            return ua.upsample4_argmax(out, out_size=(H, W))
+        return resize_bilinear_align_corners(out, H, W).argmax(dim=1)
+    if fused and tv.supports(out.shape[2:], (H, W)):
+        return tv.tconv2x_argmax_parity_major(out, model.transposed_conv.weight)
+    return model.transposed_conv(out).argmax(dim=1)
+
+
 def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
                          num_classes: int, num_steps: int,
                          noise_mode: str = "dropout",
                          fused_upsample: bool = False,
                          compute_dtype: str = "float32",
                          labels_packed: bool = False) -> torch.Tensor:
-    """(B, H, W) f32 masked vote-entropy maps over ``num_steps`` MC-dropout
-    forwards of an eval-mode DeepLab or ENet, masks drawn from
-    ``generator``.
+    """(B, H, W) f32 masked vote-entropy maps over ``num_steps``
+    stochastic forwards of an eval-mode DeepLab or ENet, every draw taken
+    from ``generator``.
 
+    noise_mode (the JAX package's kernels.py:61-64):
+      'dropout' — MC dropout; the deterministic prefix is hoisted (DeepLab's
+                  backbone, ENet's initial block and ``downsample1_0`` up
+                  to its dropout) and runs once per batch;
+      'input'   — the normalized images + 0.125 * N(0, 1) in the compute
+                  dtype (the draw is f32), dropout off;
+      'feature' — the models' ``noisy_features`` sites, dropout off.
+    The noise modes run the whole forward every step (no hoist).
     images: (B, H, W, 3) uint8 wire (or normalized float) on the device.
     labels: (B, H, W) label plane, or with ``labels_packed`` the packed
     1-bit valid mask (B, H, ceil(W/8)).
-    fused_upsample: DeepLab votes through the CUDA upsample4_argmax kernel
-    on decoder-resolution logits when the geometry is an exact 4x; any
-    other geometry (the crop_size=-1 letterbox) upsamples with
-    F.interpolate and takes the argmax. ENet votes through the CUDA
-    tconv2x_argmax_parity_major kernel on its stage-5 features when the
-    geometry is an exact 2x; unfused, it runs its transposed-conv
-    classifier and takes the argmax.
+    fused_upsample: vote through the CUDA kernels where the geometry
+    allows, decided from the tail output's shape (``_step_votes``); any
+    other geometry (the crop_size=-1 letterbox) votes unfused.
     compute_dtype: 'float32' | 'bfloat16' dtype of the forwards (a model
     of another dtype is cast, see ``cast_for_mc``); the entropy over the
     uint8 vote stack is always f32.
     """
-    if noise_mode != "dropout":
-        raise NotImplementedError(f"noise_mode '{noise_mode}' (MC-noise) is "
-                                  "not ported yet (ROADMAP A11)")
+    if noise_mode not in ("dropout", "input", "feature"):
+        raise NotImplementedError(noise_mode)
     model_name = getattr(model, "model_name", "")
     if model_name not in ("deeplab", "enet"):
         raise NotImplementedError(f"MC scoring is ported for DeepLab and ENet "
@@ -128,41 +152,35 @@ def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
         raise ValueError("MC scoring needs the model in eval mode (BN at "
                          "running statistics)")
     model = cast_for_mc(model, compute_dtype)
-    B, H, W = images.shape[:3]
+    H, W = images.shape[1:3]
     with torch.inference_mode(), _mc_precision():
         x = normalize_on_device(images).to(getattr(torch, compute_dtype))
-        if model_name == "deeplab":
-            # backbone hoist: every dropout site sits at or after the
-            # backbone outputs, so the deterministic backbone runs once
-            feats = model(x, backbone_only=True)
-            # decoder logits come out at the low-level features' resolution
-            fused = fused_upsample and ua.supports(feats[1].shape[2:], (H, W))
-            hoist = {"backbone_features": feats}
-        else:
-            # prefix hoist: the initial block and downsample1_0 up to its
-            # dropout (the first draw) run once
-            feats = model(x, prefix_only=True)
-            # stage-5 features sit at twice the stage-1 grid
-            fused = fused_upsample and tv.supports(
-                [2 * n for n in feats[0].shape[2:]], (H, W))
-            hoist = {"prefix_features": feats}
-        tconv_fused = fused and model_name == "enet"
-        shape = (B, 4, H // 2, W // 2) if tconv_fused else (B, H, W)
-        votes = torch.empty((num_steps,) + shape, dtype=torch.uint8,
-                            device=x.device)
+        hoist = {}
+        if noise_mode == "dropout":
+            hoist = ({"backbone_features": model(x, backbone_only=True)}
+                     if model_name == "deeplab" else
+                     {"prefix_features": model(x, prefix_only=True)})
+        votes = None
         for s in range(num_steps):
-            out = model(x, use_dropout=True, generator=generator,
-                        upsample_logits=not fused, **hoist)
-            if not fused:
-                votes[s] = out.argmax(dim=1)
-            elif tconv_fused:
-                votes[s] = tv.tconv2x_argmax_parity_major(
-                    out, model.transposed_conv.weight)
+            if noise_mode == "dropout":
+                out = model(x, use_dropout=True, generator=generator,
+                            upsample_logits=False, **hoist)
+            elif noise_mode == "input":
+                z = torch.randn(x.shape, dtype=torch.float32, device=x.device,
+                                generator=generator)
+                out = model(x + 0.125 * z.to(x.dtype), use_dropout=False,
+                            upsample_logits=False)
             else:
-                votes[s] = ua.upsample4_argmax(out, out_size=(H, W))
+                out = model(x, use_dropout=False, generator=generator,
+                            noisy_features=True, upsample_logits=False)
+            step = _step_votes(model, out, fused_upsample, H, W)
+            if votes is None:
+                votes = torch.empty((num_steps,) + tuple(step.shape),
+                                    dtype=torch.uint8, device=x.device)
+            votes[s] = step
         ent = ent_ops.vote_entropy(votes, num_classes)
-        if tconv_fused:
-            ent = tv.interleave_parity_major(ent)   # once, after the steps
+        if votes.dim() == 5:   # parity-major B2 votes: interleave once
+            ent = tv.interleave_parity_major(ent)
         mask = (ent_ops.unpack_mask(labels, W) if labels_packed
                 else ent_ops.valid_mask(labels, num_classes))
         return torch.where(mask, ent, torch.zeros_like(ent))
@@ -218,3 +236,46 @@ def weak_label_predictions(model, images, labels, num_classes: int,
         pred = _deterministic_logits(model, images).argmax(dim=1).to(torch.uint8)
         valid = ent_ops.valid_mask(labels, num_classes)
         return torch.where(valid, pred, torch.full_like(pred, 255))
+
+
+def _feature_map(model, images) -> torch.Tensor:
+    """(B, C, fh, fw) decoder feature tap of one eval-mode forward:
+    DeepLab's 304-channel concat, ENet's stage-3 output."""
+    if model.training:
+        raise ValueError("feature extraction needs the model in eval mode")
+    _, feats = model(normalize_on_device(images), use_dropout=False,
+                     upsample_logits=False, return_features=True)
+    return feats
+
+
+def pooled_features(model, images, pool_kernel: int,
+                    pool_stride: int) -> torch.Tensor:
+    """(B, D) avg-pooled, flattened feature vectors (core_set.py:57-63,
+    max_subset.py:73-89), TF32 off. Kernel and stride are clamped to the
+    map, k = min(kernel, fh, fw), s = min(stride, k), as in the JAX
+    package (kernels.py:290: the reference's fixed pool errors on maps
+    smaller than its kernel); the pool is VALID. Flattened in (h, w, c)
+    order, the JAX package's NHWC order, element for element."""
+    with torch.inference_mode(), _deterministic_precision():
+        feats = _feature_map(model, images)
+        k = min(pool_kernel, feats.shape[2], feats.shape[3])
+        pooled = torch.nn.functional.avg_pool2d(feats, k, min(pool_stride, k))
+        return pooled.permute(0, 2, 3, 1).reshape(pooled.shape[0], -1)
+
+
+def raw_features(model, images) -> torch.Tensor:
+    """(B, fh, fw, C) feature map, NHWC as the JAX package returns it
+    (kernels.py:314), TF32 off."""
+    with torch.inference_mode(), _deterministic_precision():
+        return _feature_map(model, images).permute(0, 2, 3, 1)
+
+
+def misprediction_counts(model, images, labels,
+                         num_classes: int) -> torch.Tensor:
+    """(B,) f32 oracle counts of valid pixels whose argmax is not the label
+    (accuracy.py:18-37), TF32 off; ``labels`` is the full label plane."""
+    with torch.inference_mode(), _deterministic_precision():
+        pred = _deterministic_logits(model, images).argmax(dim=1)
+        valid = ent_ops.valid_mask(labels, num_classes)
+        wrong = valid & (pred != labels.to(torch.int64))
+        return wrong.sum(dim=(1, 2)).to(torch.float32)

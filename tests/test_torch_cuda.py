@@ -210,3 +210,67 @@ def test_square_nms_device_on_the_card_equals_host(cuda_device, n, cells, cell,
     assert boxes.device.type == "cuda"
     dev = region_ops.device_boxes_to_regions(boxes.cpu().numpy(), int(k), n, region)
     assert dev == host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,side", [("deeplab", 65), ("enet", 64)])
+@pytest.mark.parametrize("noise_mode", ["input", "feature"])
+def test_noise_sweep_through_the_kernel_equals_its_plain_rescore(
+        cuda_device, monkeypatch, arch, side, noise_mode):
+    """A noise sweep votes through B1 (DeepLab, exact 4x) or B2 (ENet,
+    exact 2x) every step; re-scored from the same generator state with the
+    kernel's plain version in its place, the entropy maps are equal bit for
+    bit through B1 (bit-exact) and on >= 99.5% of pixels through B2 (its
+    vote bar)."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+
+    model = build_model(arch, 19, mc_dropout=arch == "deeplab", device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    images = torch.randint(0, 256, (2, side, side, 3), dtype=torch.uint8,
+                           device=cuda_device, generator=gen.manual_seed(1))
+    labels = torch.zeros(2, side, side, dtype=torch.uint8, device=cuda_device)
+    op, plain = ((ua.upsample4_argmax, lambda x, out_size=None: ua.upsample4_argmax_plain(x))
+                 if arch == "deeplab" else
+                 (tv.tconv2x_argmax_parity_major, tv.tconv2x_argmax_parity_major_plain))
+
+    def sweep():
+        return kernels.mc_vote_entropy_maps(
+            model, images, labels, kernels.mc_generator(0, 0, cuda_device), 19, 6,
+            noise_mode, fused_upsample=True)
+
+    before = op.launches
+    fused = sweep()
+    assert op.launches - before == 6
+    monkeypatch.setattr(ua if arch == "deeplab" else tv, op.__name__, plain)
+    rescored = sweep()
+    assert fused.shape == (2, side, side) and fused.max() > 0
+    if arch == "deeplab":
+        assert torch.equal(fused, rescored)
+    else:
+        assert (fused == rescored).float().mean().item() >= 0.995
+
+
+@pytest.mark.cuda
+def test_greedy_selection_on_the_card_equals_the_cpu(cuda_device):
+    """k-center greedy and max-representative on the card pick what the
+    same functions pick on the CPU (clustered non-negative features, as
+    decoder features are; TF32 off)."""
+    from deep_active_semantic_segmentation_torch.ops import distance
+    from deep_active_semantic_segmentation_torch.selection.kernels import (
+        _deterministic_precision)
+
+    gen = torch.Generator().manual_seed(3)
+    centers = torch.rand(12, 96, generator=gen) * 4
+    feats = torch.relu(centers[torch.randint(0, 12, (900,), generator=gen)]
+                       + torch.randn(900, 96, generator=gen))
+    seed_mask = torch.zeros(900, dtype=torch.bool)
+    seed_mask[:40] = True
+    with _deterministic_precision():
+        cpu = distance.kcenter_greedy(feats, seed_mask, 60)
+        card = distance.kcenter_greedy(feats.to(cuda_device), seed_mask, 60)
+        assert card.device.type == "cuda" and card.cpu().tolist() == cpu.tolist()
+        cand = feats[300:500]
+        cpu = distance.max_representative(feats, cand, 40)
+        card = distance.max_representative(feats.to(cuda_device),
+                                           cand.to(cuda_device), 40)
+        assert card.cpu().tolist() == cpu.tolist()

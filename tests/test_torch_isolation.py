@@ -22,10 +22,12 @@ import active_train_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
                                              "deep_active_semantic_segmentation_tpu")))
-missing = {"ops.region", "selection.region_pipeline", "selection.ceal"} - {
+missing = {"ops.region", "selection.region_pipeline", "selection.ceal",
+           "ops.distance", "selection.mc_noise", "selection.core_set",
+           "selection.max_subset", "selection.accuracy"} - {
     n.split(".", 1)[1] for n in names}
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
-sys.exit(1 if bad or missing or len(names) < 47 else 0)
+sys.exit(1 if bad or missing or len(names) < 52 else 0)
 """
 
 
@@ -88,30 +90,43 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_unported_parts_name_their_roadmap_item():
+    from deep_active_semantic_segmentation_torch.config import SELECTION_MODES
     from deep_active_semantic_segmentation_torch.data.store import MemoryStore
+    from deep_active_semantic_segmentation_torch.engine import active_loop
     from deep_active_semantic_segmentation_torch.models.factory import build_model
     from deep_active_semantic_segmentation_torch.selection import (
         get_active_selection_class)
 
-    for arch, item in (("unet", "A13"), ("fastscnn", "A14")):
+    for arch, item in (("unet", "A13b"), ("accuracy_predictor", "A13b"),
+                       ("fastscnn", "A14")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(arch, 19, device="cpu")
     # ENet is ported: the JAX factory's config, on the CPU when asked
     enet = build_model("enet", 19, device="cpu")
     assert enet.model_name == "enet" and not enet.training
     assert isinstance(enet.initial_block.out_act, torch.nn.ReLU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        enet(torch.zeros(1, 3, 32, 32), noisy_features=True)
     with pytest.raises(NotImplementedError, match="A14"):
         build_model("deeplab", 19, backbone="resnet", device="cpu")
-    for mode, item in (("coreset", "A10"), ("noise_image", "A11"),
-                       ("noise_variance", "A11"), ("accuracy_labels", "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_active_selection_class(mode, 19, MemoryStore(), 33, 2,
-                                       device="cpu")
+    # every selection mode of active_train.py has its selector; the
+    # accuracy-predictor scorers wait for A13b
+    assert sorted(SELECTION_MODES) == sorted(active_loop._MODES)
+    for mode in SELECTION_MODES:
+        get_active_selection_class(mode, 19, MemoryStore(), 33, 2, device="cpu")
+    oracle = get_active_selection_class("accuracy_labels", 19, MemoryStore(), 33,
+                                        2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A13b"):
+        oracle.get_least_accurate_samples(None, [], 1)
+    with pytest.raises(NotImplementedError):
+        get_active_selection_class("accuracy", 19, MemoryStore(), 33, 2,
+                                   device="cpu")
+    # MC-noise is ported: the noisy forwards run, from an explicit generator
     model = build_model("deeplab", 5, mc_dropout=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        model(torch.zeros(1, 3, 33, 33), noisy_features=True)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for net, side in ((model, 33), (enet, 32)):
+            out = net(torch.zeros(1, 3, side, side), noisy_features=True,
+                      generator=gen)
+            assert torch.isfinite(out).all()
 
 
 def test_random_mode_is_a_stable_rank_of_python_random():

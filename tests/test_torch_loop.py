@@ -272,14 +272,12 @@ def test_variance_mode_loop_picks_the_top_k_of_its_scorer(dataset_root, tmp_path
 def test_unported_parts_raise_naming_their_item(dataset_root, tmp_path):
     base = CANONICAL + TOY + ["--checkname", "x"]
     region = ["--dataset", "active_cityscapes_region"]
-    for extra, item in ((["--active-selection-mode", "coreset"], "A10"),
-                        (["--active-selection-mode", "variance_representative"], "A10"),
-                        (["--active-selection-mode", "noise_image"], "A11"),
-                        (["--active-selection-mode", "accuracy_labels"], "A13"),
-                        (region + ["--active-selection-mode",
-                                   "variance_representative"], "A10"),
-                        (region + ["--active-selection-mode", "noise_variance"], "A11"),
-                        (region + ["--active-selection-mode", "accuracy_eval"], "A13"),
+    for extra, item in ((region + ["--active-selection-mode", "noise_image"],
+                         "does not support region datasets"),
+                        (region + ["--active-selection-mode", "accuracy_eval"],
+                         r"ROADMAP C, accuracy_eval on region"),
+                        (region + ["--active-selection-mode", "accuracy_labels"],
+                         r"ROADMAP C, accuracy_labels on region"),
                         (region + ["--active-selection-mode", "ceal_entropy"],
                          "does not support region datasets"),
                         (region, r"ROADMAP C, random on region"),
@@ -319,6 +317,31 @@ def test_random_on_regions_fails_in_jax_and_is_rejected_before_training(
         pt_run_active_loop(cfg, dataset_root=dataset_root,
                            runs_root=str(tmp_path), device="cpu")
     assert not os.listdir(tmp_path)           # no run directory, no training
+
+
+@pytest.mark.parametrize("mode", ["accuracy_eval", "accuracy_labels"])
+def test_accuracy_on_regions_fails_in_jax_and_is_rejected_before_training(
+        dataset_root, tmp_path, monkeypatch, mode):
+    """The JAX loop lists both oracle modes as region-capable, but their
+    branches read `remaining_image_paths`, which the region pool lacks: the
+    JAX loop (its training skipped here) fails at its first selection with
+    AttributeError. The port refuses before training."""
+    from torch_port_helpers import jax_deeplab, select_with_shared_weights
+
+    argv = CANONICAL + TOY + ["--checkname", "acc", "--dataset",
+                              "active_cityscapes_region", "--active-selection-mode",
+                              mode, "--monitor-directory", "producer"]
+    select_with_shared_weights(monkeypatch, *jax_deeplab(seed=0)[1:])
+    with pytest.raises(AttributeError, match="remaining_image_paths"):
+        jx_run_active_loop(jx_config.parse_cli(argv).finalize(n_devices=1), mesh=None,
+                           dataset_root=dataset_root, runs_root=str(tmp_path / "jax"))
+    port_runs = tmp_path / "port"
+    port_runs.mkdir()
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        pt_run_active_loop(pt_config.parse_cli(argv).finalize(),
+                           dataset_root=dataset_root, runs_root=str(port_runs),
+                           device="cpu")
+    assert not os.listdir(port_runs)          # no run directory, no training
 
 
 REGION = 9

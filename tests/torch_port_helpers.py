@@ -124,3 +124,67 @@ def write_pool(store, n: int, seed: int, hw=(40, 90)):
         keys.append(key)
     store.finalize(keys)
     return keys
+
+
+def write_dataset(root: str, n_train: int = 16, seed_sets=(("set_0.txt", 5),)):
+    """The loops' dataset layout under ``root``: an ``n_train``-image
+    Cityscapes train split, a 4-image val split and seed sets (name, the
+    first ``k`` train images). Returns the train keys."""
+    import os
+
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+
+    city = os.path.join(root, "cityscapes")
+    keys = write_pool(DirectoryStore(os.path.join(city, "train"), readonly=False),
+                      n_train, seed=0)
+    write_pool(DirectoryStore(os.path.join(city, "val"), readonly=False), 4, seed=1)
+    os.makedirs(os.path.join(city, "seed_sets"))
+    for name, k in seed_sets:
+        with open(os.path.join(city, "seed_sets", name), "w") as f:
+            f.writelines(key.decode() + "\n" for key in keys[:k])
+    return keys
+
+
+def select_with_shared_weights(monkeypatch, params, stats):
+    """Make both packages' AL loops select with one DeepLab's weights: the
+    port trainer's best-checkpoint reload loads (params, stats) as the
+    converted state_dict, and the JAX trainer starts every round on them,
+    so a deterministic mode must write the same selections.txt in both.
+    The JAX loop's own initialization, training and validation are
+    skipped (its selection is the reference here); the port's run."""
+    import types
+
+    from deep_active_semantic_segmentation_torch.engine import trainer as pt_trainer
+    from deep_active_semantic_segmentation_torch.models.convert import (
+        flax_to_deeplab_state_dict)
+    from deep_active_semantic_segmentation_tpu.engine import trainer as jx_trainer
+    from deep_active_semantic_segmentation_tpu.models.factory import (
+        build_model as jx_build_model)
+
+    state_dict = flax_to_deeplab_state_dict(params, stats)
+
+    def jax_initialize(self):
+        args = self.args
+        self.model = jx_build_model(args.architecture, self.nclass,
+                                    backbone=args.backbone,
+                                    output_stride=args.out_stride,
+                                    mc_dropout=args.mc_dropout)
+        self.state = types.SimpleNamespace(params=params, batch_stats=stats)
+
+    monkeypatch.setattr(pt_trainer.Trainer, "load_best_checkpoint",
+                        lambda self: self.model.load_state_dict(state_dict))
+    monkeypatch.setattr(jx_trainer.Trainer, "initialize", jax_initialize)
+    monkeypatch.setattr(jx_trainer.Trainer, "training", lambda self, epoch: 0.0)
+    monkeypatch.setattr(jx_trainer.Trainer, "validation",
+                        lambda self, epoch: (0.0, 0.0, 0.0, 0.0, 0.0, None))
+    monkeypatch.setattr(jx_trainer.Trainer, "load_best_checkpoint",
+                        lambda self: None)
+
+
+def selections(runs: str, dataset: str, checkname: str) -> dict:
+    """{run dir: selections.txt bytes} of one loop's experiment."""
+    import os
+
+    exp = os.path.join(runs, dataset, checkname)
+    return {d: open(os.path.join(exp, d, "selections.txt"), "rb").read()
+            for d in sorted(os.listdir(exp)) if d.startswith("run_")}
