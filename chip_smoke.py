@@ -79,7 +79,23 @@
    an `accuracy_labels` query (no launch, counts equal a recount, the
    pick their top 5) and an `accuracy_eval` consumer round replaying the
    AL round's selections.txt.
-10. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+10. The accuracy predictor (DeepLab + UNet error head) at
+   pa_experiments_07t.sh / 17t.sh's geometry over the Pascal phase's 20
+   records (the 512 letterbox, 21 classes, batch 5), every phase with
+   its launch counts set to 0 just before and read just after (no B1 or
+   B2): the dual train step device-resident in bf16 and f32 (ms, peak
+   memory, finite falling losses, a profile of one bf16 step), the dual
+   eval step's two confusions against host bincounts, a dual epoch
+   through the Loader and a validation; one f32 dual step on the card
+   against the CPU; one 2-round accuracy_predictor_train_torch.main on
+   active_pascal_image and on active_pascal_region (best.ckpt reloads bit
+   for bit, the image pick the top 5 of a re-score); then, on that run's
+   round 0 best.ckpt, the `accuracy` (softmax, argmax), `uncertain`,
+   `gradient` and `uncertain_gradient` image queries and the `accuracy`
+   region maps, each timed 3 times, their picks equal a re-score's and
+   the CPU's (TF32 off; a near-tie within 1e-5 relative allowed and
+   printed), the gradient query's peak memory.
+11. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -722,13 +738,14 @@ CPU_LOSS_RTOL = 1e-4
 CPU_PARAM_RTOL = 1e-3
 
 
-def write_dataset(root: Path, seed: int):
-    """The loop's dataset layout under ``root``: the POOL-record train
-    split, a VAL-record val split, and seed sets (the first SEED_SET
-    train images; all of them)."""
-    city = root / "cityscapes"
-    store, paths = write_store(city / "train", seed)
-    write_store(city / "val", seed + 1, n=VAL, split="val")
+def write_dataset(root: Path, seed: int, family: str = "cityscapes", **records):
+    """The loop's dataset layout under ``root / family``: the POOL-record
+    train split, a VAL-record val split, and seed sets (the first SEED_SET
+    train images; all of them); ``records`` are ``write_store``'s record
+    options."""
+    city = root / family
+    store, paths = write_store(city / "train", seed, **records)
+    write_store(city / "val", seed + 1, n=VAL, split="val", **records)
     (city / "seed_sets").mkdir()
     for name, keys in (("set_0.txt", paths[:SEED_SET]), ("set_all.txt", paths)):
         (city / "seed_sets" / name).write_text(
@@ -1019,6 +1036,8 @@ NMS_POOL, NMS_SIDE, NMS_BOXES = 2975, 513 - REGION + 1, 791
 # pa_experiments_06t-09t.sh: Pascal VOC letterboxed to 512 (crop -1), 21
 # classes; records the size of a VOC image
 PASCAL_HW, PASCAL_CLASSES = (375, 500), 21
+PASCAL_RECORDS = dict(hw=PASCAL_HW, block=25, num_classes=PASCAL_CLASSES,
+                      void=(15, 47))
 
 
 class spy_on:
@@ -1182,7 +1201,8 @@ def pascal_region_phase(torch, seed: int, root: Path):
     letterbox), 21 classes, region 129, round 0's architecture with fresh
     weights, the first 10 images labeled. 4x127+1 = 509 != 512, so the
     sweep runs unfused: no B1 and no B2 launch. Its boxes equal the host
-    NMS's on the same normalized maps."""
+    NMS's on the same normalized maps. Writes the Pascal dataset (train,
+    val and seed sets) that the accuracy-predictor phases use too."""
     from deep_active_semantic_segmentation_torch.models.factory import build_model
     from deep_active_semantic_segmentation_torch.ops import region as region_ops
     from deep_active_semantic_segmentation_torch.selection import (
@@ -1190,8 +1210,7 @@ def pascal_region_phase(torch, seed: int, root: Path):
     from deep_active_semantic_segmentation_torch.selection.region_pipeline import (
         region_score_maps)
 
-    store, paths = write_store(root / "pascal" / "train", seed + 2, hw=PASCAL_HW,
-                               block=25, num_classes=PASCAL_CLASSES, void=(15, 47))
+    store, paths = write_dataset(root, seed + 2, "pascal", **PASCAL_RECORDS)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     model = build_model("deeplab", PASCAL_CLASSES, device=DEVICE, generator=gen,
                         **PATHS["deeplab"]["build"])
@@ -1786,6 +1805,553 @@ def oracle_phase(torch, seed: int, root: Path, paths):
             "eval_wall_s": wall_s, "eval_counts": eval_counts}
 
 
+# ---------------------------------------------------- the accuracy predictor
+
+# pa_experiments_07t.sh / 17t.sh (accuracy_predictor_train.py, `accuracy`):
+# Pascal at the 512 letterbox (crop -1), 21 classes, batch 5, lr 0.007 step
+# schedule, balanced weights, the error head's loss weight 0.30 and
+# wrong-class weight 0.75, bf16; cut to the Pascal phase's 20 records, a
+# 10-image seed set, 1 epoch and 2 rounds
+ACC_ARGV = ["--backbone", "mobilenet", "--lr", "0.007", "--epochs", "1",
+            "--batch-size", "5", "--eval-interval", "1", "--base-size", "512",
+            "--crop-size", "-1", "--use-lr-scheduler", "--lr-scheduler", "step",
+            "--max-iterations", "2", "--active-batch-size", "5",
+            "--use-balanced-weights", "--workers", "0", "--memory-hog",
+            "--no-early-stop", "--active-selection-mode", "accuracy",
+            "--weight-unet", "0.30", "--weight-wrong-label-unet", "0.75"]
+ACC_BASE = 512
+# the weights of an end-to-end epoch: (1 - weight_unet, weight_unet)
+ACC_WEIGHTS = (0.7, 0.3)
+ACC_QUERY_RUNS = 3
+# the five image queries of accuracy_predictor_train.py (the accuracy mode
+# with either --accuracy-selection) and the score each ranks by
+ACC_QUERIES = ("accuracy_softmax", "accuracy_argmax", "uncertain", "gradient",
+               "uncertain_gradient")
+
+
+def accuracy_train_phase(torch, seed: int, root: Path):
+    """The two-headed model at the scripts' geometry (the 512 letterbox,
+    batch 5, 21 classes): the dual step on a device-resident batch in bf16
+    then f32 (TF32 on), ms per step, peak memory, every loss finite and the
+    total falling over the steps on that one batch, and a profile of one
+    bf16 step; the dual eval step's segmentation and error confusions
+    against host bincounts of the same predictions; an epoch of dual
+    training through the port's Loader (images/s) and a validation with
+    its error-head accuracy."""
+    import accuracy_predictor_train_torch as driver
+    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+    from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import make_schedule
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_dual_eval_step, make_dual_train_step)
+    from deep_active_semantic_segmentation_torch.utils.class_weights import (
+        calculate_weights_labels)
+
+    cfg = driver.parse_args(ACC_ARGV + ["--dataset", "active_pascal_image",
+                                        "--seed", str(seed), "--seed_set",
+                                        "set_all.txt", "--epochs", "150"])
+    _, train_loader, val_loader, _, nclass = make_dataloader(
+        cfg.dataset, cfg.base_size, cfg.crop_size, cfg.batch_size,
+        init_set=cfg.seed_set, dataset_root=str(root), seed=seed,
+        rng=random.Random(seed), device=DEVICE)
+    host_batch = next(iter(train_loader))
+    cw = torch.as_tensor(calculate_weights_labels(train_loader, nclass),
+                         dtype=torch.float32, device=DEVICE)
+    unet_w = torch.tensor([cfg.weight_wrong_label_unet,
+                           1 - cfg.weight_wrong_label_unet], device=DEVICE)
+    batch = {k: torch.from_numpy(host_batch[k]).to(DEVICE) for k in ("image", "label")}
+    B, side = cfg.batch_size, host_batch["image"].shape[1]
+    check(tuple(host_batch["image"].shape) == (B, ACC_BASE, ACC_BASE, 3),
+          f"letterboxed batch {host_batch['image'].shape}")
+    out = {"batch": B, "side": side}
+    for dtype in ("bfloat16", "float32"):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        model = build_model("accuracy_predictor", nclass, backbone="mobilenet",
+                            device=DEVICE, generator=gen).train()
+        opt = build_optimizer("SGD", param_groups(model, "accuracy_predictor"), cfg)
+        step = make_dual_train_step(
+            model, opt, build_loss("ce", class_weights=cw),
+            build_loss("ce", class_weights=unet_w),
+            make_schedule("step", cfg.lr, cfg.epochs, len(train_loader)),
+            compute_dtype=dtype, generator=gen)
+        metrics = [step(batch, i, *ACC_WEIGHTS) for i in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+            metrics.append(step(batch, i, *ACC_WEIGHTS))
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        losses = {k: torch.stack([m[k] for m in metrics]).tolist()
+                  for k in ("loss", "loss_dl", "loss_un")}
+        print(f"dual train step {dtype}: {step_ms:.3f} ms per step of {B} at "
+              f"{side}² ({B / step_ms * 1e3:.2f} images/s on a device-resident "
+              f"batch), peak memory {peak / 2**30:.3f} GiB, loss "
+              f"{losses['loss'][0]:.4f} -> {losses['loss'][-1]:.4f} (seg "
+              f"{losses['loss_dl'][0]:.4f} -> {losses['loss_dl'][-1]:.4f}, error "
+              f"{losses['loss_un'][0]:.4f} -> {losses['loss_un'][-1]:.4f})", flush=True)
+        check(all(np.isfinite(v).all() for v in losses.values()),
+              f"{dtype} dual losses finite")
+        check(losses["loss"][-1] < losses["loss"][0],
+              f"{dtype} dual loss falls over {len(metrics)} steps on one batch")
+        out[dtype] = {"step_ms": step_ms, "images_per_s": B / step_ms * 1e3,
+                      "peak_bytes": peak, "losses": losses}
+        if dtype == "bfloat16":
+            out["profile_bf16_step"] = profile_sweep(
+                torch, lambda: step(batch, 0, *ACC_WEIGHTS), "one bf16 dual step")
+
+    eval_step = make_dual_eval_step(
+        model, nclass, build_loss("ce", class_weights=cw, batch_average=False),
+        build_loss("ce", class_weights=unet_w, batch_average=False))
+    ev = eval_step(batch, B, *ACC_WEIGHTS)
+    for key, gt, pred, n in (("confusion", host_batch["label"], ev["pred"], nclass),
+                             ("unet_confusion", ev["unet_target"], ev["err_pred"], 2)):
+        gt = np.asarray(gt.cpu() if hasattr(gt, "cpu") else gt).astype(np.int64)
+        pred = pred.cpu().numpy()
+        valid = gt < n
+        host = np.bincount(n * gt[valid] + pred[valid], minlength=n * n).reshape(n, n)
+        check(np.array_equal(ev[key].cpu().numpy(), host),
+              f"dual eval {key} equals a host bincount")
+    eval_ms = cuda_ms(lambda: eval_step(batch, B, *ACC_WEIGHTS), 20)
+    out["eval"] = {"step_ms": eval_ms, "images_per_s": B / eval_ms * 1e3}
+    print(f"dual eval step: {eval_ms:.3f} ms per batch of {B} "
+          f"({B / eval_ms * 1e3:.2f} images/s); both confusions exact", flush=True)
+
+    trainer = Trainer(cfg, train_loader, val_loader, nclass, device=DEVICE,
+                      dual_head=True, rng=random.Random(seed))
+    trainer.initialize()
+    epochs = []
+    for epoch in range(2):   # the first one warms the pinned-memory pool
+        t0 = time.perf_counter()
+        trainer.training(epoch, *ACC_WEIGHTS)
+        epochs.append(len(train_loader.pool) / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    test_loss, miou = trainer.validation(1, *ACC_WEIGHTS)[:2]
+    val_s = time.perf_counter() - t0
+    unet_acc = trainer.unet_evaluator.Pixel_Accuracy()
+    check(np.isfinite(test_loss) and 0 <= miou <= 1 and 0 <= unet_acc <= 1,
+          f"dual validation: loss {test_loss}, mIoU {miou}, UNetAcc {unet_acc}")
+    out.update(loader_epoch_images_per_s=epochs[-1], validation_s=val_s,
+               val_unet_acc=unet_acc, val_miou=miou)
+    print(f"dual train epoch through the Loader: {epochs[-1]:.2f} images/s "
+          f"({len(train_loader.pool)} images, bf16, host geometry included); "
+          f"validation {val_s:.3f} s, mIoU {miou:.4f}, UNetAcc {unet_acc:.4f}",
+          flush=True)
+    return out
+
+
+def accuracy_card_vs_cpu_phase(torch, seed: int):
+    """One f32 dual step at 65 px, batch 2, from the same weights on the
+    card and on the CPU, TF32 off, dropout off, BN at running statistics:
+    loss, loss_dl and loss_un within CPU_LOSS_RTOL; the updated parameters'
+    largest difference within CPU_PARAM_RTOL of the largest weight (as
+    ``card_vs_cpu_phase`` holds the one-headed step)."""
+    import copy
+
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import make_schedule
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_dual_train_step)
+    from deep_active_semantic_segmentation_torch.selection.kernels import (
+        _deterministic_precision)
+
+    rng = np.random.RandomState(seed)
+    image = rng.randint(0, 256, (2, 65, 65, 3), dtype=np.uint8)
+    label = rng.randint(0, PASCAL_CLASSES, (2, 65, 65)).astype(np.uint8)
+    label[:, :6] = 255
+    cw = rng.uniform(0.5, 2.0, PASCAL_CLASSES).astype(np.float32)
+    cpu_model = build_model("accuracy_predictor", PASCAL_CLASSES, device="cpu",
+                            generator=torch.Generator().manual_seed(seed))
+    models = {"cpu": cpu_model, DEVICE: copy.deepcopy(cpu_model).to(DEVICE)}
+    metrics = {}
+    with _deterministic_precision():
+        for dev, model in models.items():
+            freeze_bn(model)
+            opt = build_optimizer("SGD", param_groups(model, "accuracy_predictor"))
+            step = make_dual_train_step(
+                model, opt, build_loss("ce", class_weights=torch.from_numpy(cw).to(dev)),
+                build_loss("ce", class_weights=torch.tensor([0.75, 0.25], device=dev)),
+                make_schedule("step", 0.007, 150, 4))
+            out = step({"image": torch.from_numpy(image).to(dev),
+                        "label": torch.from_numpy(label).to(dev)}, 0, *ACC_WEIGHTS)
+            metrics[dev] = {k: float(out[k]) for k in ("loss", "loss_dl", "loss_un")}
+    rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in metrics["cpu"]}
+    card = dict(models[DEVICE].named_parameters())
+    model_rel = max((card[n].detach().cpu() - p.detach()).abs().max().item()
+                    for n, p in models["cpu"].named_parameters()) / max(
+        p.detach().abs().max().item() for p in models["cpu"].parameters())
+    print(f"card vs CPU, one f32 dual step at 65 px: {metrics[DEVICE]} vs "
+          f"{metrics['cpu']} (rel {json.dumps(rel)}, bar {CPU_LOSS_RTOL}); parameters: "
+          f"largest difference {model_rel:.2e} of the largest weight (bar "
+          f"{CPU_PARAM_RTOL})", flush=True)
+    check(max(rel.values()) <= CPU_LOSS_RTOL, "card and CPU dual step losses agree")
+    check(model_rel <= CPU_PARAM_RTOL, "card and CPU dual step parameters agree")
+    return {"card": metrics[DEVICE], "cpu": metrics["cpu"], "loss_rel": rel,
+            "model_rel": model_rel}
+
+
+def accuracy_driver_phase(torch, seed: int, root: Path):
+    """One 2-round ``accuracy_predictor_train_torch.main`` on
+    active_pascal_image and one on active_pascal_region (region 129), the
+    launch counts set to 0 just before each and read just after: no B1 or
+    B2 launch; selections 10 then 15 images, or the seed images' whole
+    512² boxes then new 129² boxes; round 0's best.ckpt reloads bit for
+    bit; the image run's pick is the top 5 of the pool's P(wrong) sums
+    re-scored on that checkpoint."""
+    import accuracy_predictor_train_torch as driver
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.selection import ActiveSelectionAccuracy
+    from deep_active_semantic_segmentation_torch.selection.base import rank_descending
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    requested = math.ceil(5 * ACC_BASE ** 2 / REGION ** 2)
+    for dataset in ("active_pascal_image", "active_pascal_region"):
+        argv = ACC_ARGV + ["--dataset", dataset, "--seed", str(seed),
+                           "--checkname", "acc", "--active-region-size", str(REGION)]
+        reset_counts()
+        t0 = time.perf_counter()
+        history = driver.main(argv, device=DEVICE, dataset_root=str(root),
+                              runs_root=str(root / "runs"))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        exp = root / "runs" / dataset / "acc"
+        sel = list(read_selections(exp).values())
+        print(f"accuracy_predictor_train_torch on {dataset}: {wall_s:.3f} s for 2 "
+              f"rounds; selections {[len(r) for r in sel]} images, "
+              f"{[sum(len(b) for _, b in r) for r in sel]} boxes; launches "
+              f"{json.dumps(counts)}; best mIoU {[h['mIoU'] for h in history.values()]}",
+              flush=True)
+        check(all(n == 0 for n in counts.values()),
+              f"no B1 or B2 launch in the accuracy-predictor driver: {counts}")
+        check(len(sel) == 2 and len(sel[0]) == SEED_SET
+              and [p for p, _ in sel[1][:SEED_SET]] == [p for p, _ in sel[0]],
+              "round 1 keeps round 0's labeled images first")
+        if dataset.endswith("_image"):
+            check(len(sel[1]) == SEED_SET + 5, "the image round picked 5 images")
+        else:
+            new = sum(len(b) for _, b in sel[1]) - sum(len(b) for _, b in sel[0])
+            check(sel[0] == [(p, [(0, 0, ACC_BASE, ACC_BASE)]) for p, _ in sel[0]]
+                  and 1 <= new <= requested
+                  and all(b[2:] == (REGION, REGION) for _, boxes in sel[1]
+                          for b in boxes if b != (0, 0, ACC_BASE, ACC_BASE)),
+                  f"region round: seed boxes whole, {new} new 129² boxes of {requested}")
+
+        ckpt = sorted(exp.glob("run_*"))[0] / "best.ckpt"
+        model = build_model("accuracy_predictor", PASCAL_CLASSES, device=DEVICE)
+        payload = load_checkpoint(str(ckpt), model, device=DEVICE)
+        on_file = torch.load(str(ckpt), map_location="cpu", weights_only=True)["state_dict"]
+        check(all(torch.equal(model.state_dict()[k].cpu(), v) for k, v in on_file.items())
+              and payload["state_dict"].keys() == model.state_dict().keys(),
+              f"{dataset}: best.ckpt reloads to the same tensors bit for bit")
+        out[dataset] = {"wall_s": wall_s, "counts": counts, "history": history,
+                        "selections": [len(r) for r in sel], "checkpoint": str(ckpt)}
+        if dataset.endswith("_image"):
+            store = DirectoryStore(str(root / "pascal" / "train"))
+            labeled = {p for p, _ in sel[0]}
+            remaining = [p for p in store.keys() if p.decode() not in labeled]
+            scores, _ = error_head_pass(
+                torch, model, ActiveSelectionAccuracy(
+                    PASCAL_CLASSES, store, -1, 5, device=DEVICE), remaining)
+            check([p.decode() for p in rank_descending(scores["softmax"], remaining, 5)]
+                  == [p for p, _ in sel[1][SEED_SET:]],
+                  "the image round picked the top 5 of its re-scored P(wrong) sums")
+    return out
+
+
+def error_head_pass(torch, model, selector, paths):
+    """A re-score of ``paths`` through ``selector``'s loader, TF32 off: one
+    forward per batch gives each image's softmax (summed P(wrong)), argmax
+    (predicted-wrong count) and unsure (mean 4p - 4p^2) scores and the
+    batch's P(wrong) maps (pad rows included, as the region pipeline takes
+    them), in the selectors' formulas; the input-gradient norms through
+    ``kernels.input_gradient_norms``. Returns ({score: [per image]}, [maps
+    per batch])."""
+    from deep_active_semantic_segmentation_torch.ops.entropy import unpack_mask
+    from deep_active_semantic_segmentation_torch.selection import kernels
+
+    model = model.eval()
+    scores = {m: [] for m in ("softmax", "argmax", "unsure", "gradient")}
+    maps = []
+    for batch in selector._paths_loader(paths, include_labels=True,
+                                        labels_as_mask=PASCAL_CLASSES):
+        n, images, packed = batch["nvalid"], batch["image"], batch["label"]
+        with torch.inference_mode(), kernels._deterministic_precision():
+            _, err = model(kernels.normalize_on_device(images))
+            valid = unpack_mask(packed, images.shape[2])
+            prob = torch.softmax(err, dim=1)
+            p_wrong = torch.where(valid, prob[:, 0], 0.0)
+            wrong = torch.where(valid, 1.0 - err.argmax(dim=1).to(torch.float32), 0.0)
+            p = prob[:, 1]
+            unsure = (torch.where(valid, 4.0 * p - 4.0 * p * p, 0.0).sum(dim=(1, 2))
+                      / valid.sum(dim=(1, 2)).clamp_min(1))
+        for name, v in (("softmax", p_wrong.sum(dim=(1, 2))),
+                        ("argmax", wrong.sum(dim=(1, 2))), ("unsure", unsure),
+                        ("gradient", kernels.input_gradient_norms(
+                            model, images, packed, PASCAL_CLASSES,
+                            labels_packed=True))):
+            scores[name] += v[:n].tolist()
+        maps.append(p_wrong)
+    return scores, maps
+
+
+def accuracy_picks(scores, paths, k: int = 5):
+    """Each query's picks derived from ``error_head_pass`` scores, as the
+    selectors rank (stable descending); ``uncertain_2k`` is the first
+    stage of ``uncertain_gradient``."""
+    from deep_active_semantic_segmentation_torch.selection.base import rank_descending
+
+    picks = {name: rank_descending(scores[score], paths, k) for name, score in (
+        ("accuracy_softmax", "softmax"), ("accuracy_argmax", "argmax"),
+        ("uncertain", "unsure"), ("gradient", "gradient"))}
+    picks["uncertain_2k"] = rank_descending(scores["unsure"], paths, 2 * k)
+    index = {p: i for i, p in enumerate(paths)}
+    picks["uncertain_gradient"] = rank_descending(
+        [scores["gradient"][index[p]] for p in picks["uncertain_2k"]],
+        picks["uncertain_2k"], k)
+    return picks
+
+
+@contextlib.contextmanager
+def conv_settings(torch, tf32: bool, cudnn: bool):
+    """cuDNN / matmul TF32 and cuDNN itself set for a ``with`` block, then
+    restored."""
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.enabled)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = tf32
+    b.cudnn.enabled = cudnn
+    try:
+        yield
+    finally:
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.enabled = saved
+
+
+def conv_settings_phase(torch, kernels, score_args):
+    """One batch's error-head forward (``error_head_scores``) and input
+    gradient, in device ms (CUDA events, after a warm call) and peak memory
+    above the start: as the port runs them (TF32 off, cuDNN's own
+    algorithm choice), then with TF32 on, then with TF32 off and cuDNN off
+    (PyTorch's own convolution), the scorers' precision scope swapped for
+    the measurement and restored after it."""
+    b = torch.backends
+    flags = lambda: (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.enabled)
+    before, saved = flags(), kernels._deterministic_precision
+    settings = {"port (TF32 off)": (False, True), "TF32 on": (True, True),
+                "TF32 off, cuDNN off": (False, False)}
+    out = {}
+    try:
+        for label, (tf32, cudnn) in settings.items():
+            kernels._deterministic_precision = (
+                lambda tf32=tf32, cudnn=cudnn: conv_settings(torch, tf32, cudnn))
+            for name, fn in (("error_head_scores", lambda: kernels.error_head_scores(
+                                 *score_args, "softmax", labels_packed=True)),
+                             ("input_gradient_norms", lambda: kernels.input_gradient_norms(
+                                 *score_args, labels_packed=True))):
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                out[f"{name}, {label}"] = {
+                    "ms": start.elapsed_time(end),
+                    "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    finally:
+        kernels._deterministic_precision = saved
+    check(flags() == before, "conv settings restored")
+    for key, v in out.items():
+        print(f"one batch of {score_args[1].shape[0]}, {key}: {v['ms']:.3f} ms, peak "
+              f"{v['peak_bytes'] / 2**30:.3f} GiB above the start", flush=True)
+    return out
+
+
+def accuracy_query_phase(torch, seed: int, root: Path, ckpt: str):
+    """The accuracy predictor's queries through the selector a user calls,
+    on the driver phase's round 0 best.ckpt, over the Pascal phase's 20
+    records at the 512 letterbox: ``accuracy`` (softmax and argmax),
+    ``uncertain``, ``gradient`` and ``uncertain_gradient`` on images, each
+    timed ACC_QUERY_RUNS times (images/s, median), and the ``accuracy``
+    region maps (region 129, the first 10 images labeled), each run with
+    the launch counts set to 0 just before and read just after (no B1 or
+    B2); the gradient query's peak memory. Checks: the same picks every
+    run; finite scores; every pick equal to a re-score's on the card; the
+    card's picks and boxes equal to the CPU's on the same weights (TF32
+    off on both), where a differing pick must be a near-tie (the two
+    images' CPU scores within GREEDY_SCORE_RTOL), printed."""
+    import copy
+
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.ops import region as region_ops
+    from deep_active_semantic_segmentation_torch.selection import (
+        ActiveSelectionAccuracy, ModelBundle)
+    from deep_active_semantic_segmentation_torch.selection.region_pipeline import (
+        region_score_maps)
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
+
+    store = DirectoryStore(str(root / "pascal" / "train"))
+    paths = list(store.keys())
+    model = build_model("accuracy_predictor", PASCAL_CLASSES, device=DEVICE)
+    load_checkpoint(ckpt, model, device=DEVICE)
+    bundle = ModelBundle(model, torch.device(DEVICE))
+    sel = ActiveSelectionAccuracy(PASCAL_CLASSES, store, -1, 5, device=DEVICE)
+    k = 5
+    queries = {
+        "accuracy_softmax": lambda: sel.get_least_accurate_samples(bundle, paths, k),
+        "accuracy_argmax": lambda: sel.get_least_accurate_samples(bundle, paths, k,
+                                                                  "argmax"),
+        "uncertain": lambda: sel.get_unsure_samples(bundle, paths, k),
+        "gradient": lambda: sel.get_adversarially_vulnarable_samples(bundle, paths, k),
+        "uncertain_gradient": lambda: sel.get_adversarially_vulnarable_samples(
+            bundle, sel.get_unsure_samples(bundle, paths, 2 * k), k),
+    }
+    existing = [[(0, 0, ACC_BASE, ACC_BASE)] if i < SEED_SET else []
+                for i in range(len(paths))]
+    queries["accuracy_region"] = lambda: sel.get_least_accurate_region_maps(
+        bundle, paths, existing, REGION, k)
+    out = {}
+    for name, query in queries.items():
+        query()   # warm: cuDNN's algorithm choice, the pinned-memory pool
+        runs, picks, counts = [], [], []
+        for r in range(ACC_QUERY_RUNS):
+            torch.cuda.synchronize()
+            if name == "gradient" and r == 0:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            picks.append(query())
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            counts.append(read_counts())
+        rate = [len(paths) / t for t in runs]
+        out[name] = {"query_s": runs, "images_per_s": float(np.median(rate)),
+                     "counts": counts[0], "picks": picks[0]}
+        if name == "gradient":
+            out[name]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        print(f"{name} query: {len(paths)} images, median {np.median(rate):.2f} "
+              f"images/s (runs {[round(x, 2) for x in rate]}); launches "
+              f"{json.dumps(counts[0])}"
+              + (f"; peak memory {out[name]['peak_bytes'] / 2**30:.3f} GiB"
+                 if name == "gradient" else ""), flush=True)
+        check(all(all(n == 0 for n in c.values()) for c in counts),
+              f"no B1 or B2 launch in the {name} query: {counts}")
+        check(all(p == picks[0] for p in picks), f"{name}: the same picks every run")
+
+    # the device side of one batch: the error head's forward (what the
+    # softmax / argmax / unsure / region queries run) and the input
+    # gradient, profiled; the gradient's peak memory alone
+    from deep_active_semantic_segmentation_torch.selection import kernels
+
+    batch = next(iter(sel._paths_loader(paths[:k], include_labels=True,
+                                        labels_as_mask=PASCAL_CLASSES)))
+    score_args = (model, batch["image"], batch["label"], PASCAL_CLASSES)
+    out["profile_error_head_batch"] = profile_sweep(
+        torch, lambda: kernels.error_head_scores(*score_args, "softmax",
+                                                 labels_packed=True),
+        "one batch's error-head scores (TF32 off)")
+    out["profile_input_gradient_batch"] = profile_sweep(
+        torch, lambda: kernels.input_gradient_norms(*score_args, labels_packed=True),
+        "one batch's input-gradient norms (TF32 off)")
+    out["conv_settings"] = conv_settings_phase(torch, kernels, score_args)
+
+    card_scores, card_maps = error_head_pass(torch, model, sel, paths)
+    check(all(np.isfinite(v).all() and len(v) == len(paths)
+              for v in card_scores.values()), "accuracy scores finite")
+    card = accuracy_picks(card_scores, paths, k)
+    for name in ACC_QUERIES:
+        check(card[name] == out[name]["picks"],
+              f"{name}: the query's picks equal a re-score's")
+    def normalized(selector, maps):
+        return region_score_maps(lambda b, it=iter(maps): next(it),
+                                 selector._paths_loader(paths, include_labels=True,
+                                                        labels_as_mask=PASCAL_CLASSES),
+                                 existing, REGION)
+
+    def ordered_boxes(norm):
+        """The NMS's (image, r, c) boxes in pick order, ``norm`` kept."""
+        boxes, n = region_ops.square_nms_device(norm.clone(), REGION, requested)
+        return [tuple(b) for b in boxes[:int(n)].tolist()]
+
+    requested = math.ceil(k * ACC_BASE ** 2 / REGION ** 2)
+    card_norm = normalized(sel, card_maps)
+    card_boxes = ordered_boxes(card_norm)
+    (dev, dev_count), (host, host_count), _ = nms_device_vs_host(
+        torch, card_norm, REGION, requested)
+    regions, count = out["accuracy_region"]["picks"]
+    check(dev == host and region_ops.regions_to_dict(paths, dev) == regions
+          and dev_count == count == len(card_boxes),
+          "accuracy regions: the query's boxes equal the re-scored device and host "
+          "NMS's")
+
+    # the CPU on the same weights
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_sel = ActiveSelectionAccuracy(PASCAL_CLASSES, store, -1, 5, device="cpu")
+    t0 = time.perf_counter()
+    cpu_scores, cpu_maps = error_head_pass(torch, cpu_model, cpu_sel, paths)
+    cpu_s = time.perf_counter() - t0
+    cpu = accuracy_picks(cpu_scores, paths, k)
+    index = {p: i for i, p in enumerate(paths)}
+    near = {}
+    for name, score in (("accuracy_softmax", "softmax"), ("accuracy_argmax", "argmax"),
+                        ("uncertain", "unsure"), ("gradient", "gradient"),
+                        ("uncertain_2k", "unsure"), ("uncertain_gradient", "gradient")):
+        i = next((j for j, (a, b) in enumerate(zip(card[name], cpu[name])) if a != b),
+                 None)
+        if i is None:
+            continue
+        a, b = (cpu_scores[score][index[p]] for p in (card[name][i], cpu[name][i]))
+        near[name] = {"position": i, "scores": [a, b]}
+        print(f"{name}: pick {i} differs between the card and the CPU; CPU scores "
+              f"{a!r} / {b!r}", flush=True)
+        check(abs(a - b) <= GREEDY_SCORE_RTOL * max(abs(a), abs(b)),
+              f"{name}: a pick that differs from the CPU's is a near-tie")
+    cpu_norm = normalized(cpu_sel, cpu_maps)
+    cpu_boxes = ordered_boxes(cpu_norm)
+    i = next((j for j, (a, b) in enumerate(zip(card_boxes, cpu_boxes)) if a != b),
+             None)
+    if i is None and len(card_boxes) != len(cpu_boxes):
+        i = min(len(card_boxes), len(cpu_boxes))
+    if i is not None:
+        # the CPU's normalized box sums at the two boxes; past the shorter
+        # list, the 0.01 stop decided, so the other list's box sits there
+        vals = [float(cpu_norm[b[i]]) if i < len(b) else 0.01
+                for b in (card_boxes, cpu_boxes)]
+        near["accuracy_region"] = {"position": i, "scores": vals}
+        print(f"accuracy regions: box {i} differs between the card and the CPU; CPU "
+              f"normalized box sums {vals}", flush=True)
+        check(abs(vals[0] - vals[1]) <= GREEDY_SCORE_RTOL * max(map(abs, vals)),
+              "accuracy regions: a box that differs from the CPU's is a near-tie")
+    gaps = {m: float(np.max(np.abs(np.subtract(card_scores[m], cpu_scores[m]))
+                            / np.maximum(np.abs(cpu_scores[m]), 1e-30)))
+            for m in card_scores}
+    print(f"accuracy queries, card vs CPU (TF32 off): largest relative score gap "
+          f"{json.dumps(gaps)}; picks equal "
+          f"{[n for n in ACC_QUERIES if card[n] == cpu[n]]}; boxes equal "
+          f"{card_boxes == cpu_boxes}; near-ties {json.dumps(near)}; CPU pass {cpu_s:.3f} s",
+          flush=True)
+    for name in queries:
+        out[name].pop("picks")
+    out["card_vs_cpu"] = {"score_rel": gaps, "near_ties": near, "cpu_s": cpu_s,
+                          "boxes": dev_count}
+    return out
+
 
 
 def main(argv=None) -> int:
@@ -1879,6 +2445,23 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         oracle = oracle_phase(torch, args.seed, tmp, paths)
         phase_s["oracle_modes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reset_counts()
+        accuracy = {"train": accuracy_train_phase(torch, args.seed, tmp)}
+        accuracy["train"]["counts"] = read_counts()
+        phase_s["accuracy_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reset_counts()
+        accuracy["card_vs_cpu"] = accuracy_card_vs_cpu_phase(torch, args.seed)
+        accuracy["card_vs_cpu"]["counts"] = read_counts()
+        phase_s["accuracy_card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        accuracy["driver"] = accuracy_driver_phase(torch, args.seed, tmp)
+        phase_s["accuracy_driver_rounds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        accuracy["queries"] = accuracy_query_phase(
+            torch, args.seed, tmp, accuracy["driver"]["active_pascal_image"]["checkpoint"])
+        phase_s["accuracy_queries"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -1903,6 +2486,15 @@ def main(argv=None) -> int:
             mode: r["counts"][row["name"]] for mode, r in representative.items()}
         row["oracle_launches"] = (oracle["labels_counts"][row["name"]]
                                   + oracle["eval_counts"][row["name"]])
+        row["accuracy_predictor_launches"] = {
+            **{f"dual {p}": accuracy[p]["counts"][row["name"]]
+               for p in ("train", "card_vs_cpu")},
+            **{f"driver {d}": r["counts"][row["name"]]
+               for d, r in accuracy["driver"].items()},
+            **{f"query {q}": r["counts"][row["name"]]
+               for q, r in accuracy["queries"].items() if "counts" in r}}
+        check(not any(row["accuracy_predictor_launches"].values()),
+              f"{row['name']}: no launch in the accuracy-predictor phases")
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1912,7 +2504,8 @@ def main(argv=None) -> int:
              "kernels": rows, "main_paths": paths_result,
              "training": training, "al_round": al_round, "region": region,
              "ceal": ceal, "noise": noise, "representative": representative,
-             "greedy": greedy, "oracle": oracle}, indent=1))
+             "greedy": greedy, "oracle": oracle, "accuracy": accuracy},
+            indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}
                                   for row in rows]}), flush=True)

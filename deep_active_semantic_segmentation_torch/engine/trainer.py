@@ -1,5 +1,6 @@
-"""The trainer of the AL loop (parity: the JAX package's engine/trainer.py
-:44, itself the reference active_train.py:27-194).
+"""The trainer of the AL loops (parity: the JAX package's
+engine/trainer.py:44, itself the reference active_train.py:27-194 and,
+with ``dual_head``, accuracy_predictor_train.py:25-241).
 
 A fresh model and optimizer at every ``initialize()`` (one per AL round),
 per-epoch training and validation with the reference's scalar tag schema,
@@ -14,9 +15,19 @@ visualization pick draws from the host stream ``rng`` (a
 ``random.Random``), the one the pools' train transforms draw from, in the
 JAX package's order.
 
-Not ported yet, each raising and naming its ROADMAP item: the two-headed
-accuracy predictor (``dual_head``, A13b), ENet training (A12) and the
-pretrained-backbone transplant (A14).
+``dual_head`` trains the two-headed accuracy predictor (a DeepLab
+segmentation head and the UNet error head, or a symmetric DeepLab one with
+``args.symmetry``): ``training`` and ``validation`` take the epoch's loss
+weights (w_dl, w_un), the error head's classes are weighted [w_wrong,
+1 - w_wrong] (``args.weight_wrong_label_unet``), validation keeps the
+error head's 2-class confusion (``val/UNetAcc``) and returns the 5-tuple
+panel (image, seg target, seg prediction, error target, error
+prediction); every train epoch writes that panel for one train batch.
+The best checkpoint is chosen by the segmentation mIoU.
+
+Not ported yet, each raising and naming its ROADMAP item: ENet training,
+also as the predictor's head (A12), and the pretrained-backbone
+transplant (A14).
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
 from deep_active_semantic_segmentation_torch.ops.metrics import Evaluator
 from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
 from deep_active_semantic_segmentation_torch.parallel.steps import (
-    make_eval_step, make_train_step)
+    make_dual_eval_step, make_dual_train_step, make_eval_step, make_train_step)
 from deep_active_semantic_segmentation_torch.selection.base import ModelBundle
 from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
 from deep_active_semantic_segmentation_torch.utils.class_weights import (
@@ -53,9 +64,6 @@ class Trainer:
                  device=None, dual_head: bool = False,
                  runs_root: Optional[str] = None,
                  rng: Optional[random.Random] = None):
-        if dual_head:
-            raise NotImplementedError("the two-headed accuracy predictor is "
-                                      "not ported yet (ROADMAP A13b)")
         if args.architecture != "deeplab":
             raise NotImplementedError(
                 f"training '{args.architecture}' is not ported yet (ROADMAP "
@@ -72,6 +80,7 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.nclass = nclass
+        self.dual_head = dual_head
         self.runs_root = runs_root
         self.rng = rng if rng is not None else random.Random(args.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -96,13 +105,14 @@ class Trainer:
     # -- model/optimizer construction (active_train.py:42-87) --
     def initialize(self):
         args = self.args
-        self.model = build_model(args.architecture, self.nclass,
-                                 backbone=args.backbone,
+        arch = "accuracy_predictor" if self.dual_head else args.architecture
+        self.model = build_model(arch, self.nclass, backbone=args.backbone,
                                  output_stride=args.out_stride,
                                  mc_dropout=args.mc_dropout,
-                                 device=self.device, generator=self.generator)
+                                 device=self.device, generator=self.generator,
+                                 symmetry=args.symmetry)
         self.optimizer = build_optimizer(
-            args.optimizer, param_groups(self.model, args.architecture), args)
+            args.optimizer, param_groups(self.model, arch), args)
 
         if args.use_balanced_weights and self._class_weights is None:
             print("Calculating class weights..")
@@ -119,15 +129,28 @@ class Trainer:
                                      ipe, lr_step=args.lr_step)
         else:
             schedule = constant_schedule(args.lr)
-        self.train_step = make_train_step(
-            self.model, self.optimizer,
-            build_loss(args.loss_type, class_weights=self._class_weights),
-            schedule, compute_dtype=args.dtype, generator=self.generator,
-            remat=args.remat)
-        self.eval_step = make_eval_step(
-            self.model, self.nclass,
-            build_loss(args.loss_type, class_weights=self._class_weights,
-                       batch_average=False))
+        losses = [build_loss(args.loss_type, class_weights=self._class_weights,
+                             batch_average=average) for average in (True, False)]
+        if self.dual_head:
+            w_wrong = args.weight_wrong_label_unet
+            unet_weights = torch.tensor([w_wrong, 1 - w_wrong],
+                                        dtype=torch.float32, device=self.device)
+            err_losses = [build_loss(args.loss_type, class_weights=unet_weights,
+                                     batch_average=average)
+                          for average in (True, False)]
+            self.train_step = make_dual_train_step(
+                self.model, self.optimizer, losses[0], err_losses[0], schedule,
+                compute_dtype=args.dtype, generator=self.generator,
+                remat=args.remat)
+            self.eval_step = make_dual_eval_step(self.model, self.nclass,
+                                                 losses[1], err_losses[1])
+            self.unet_evaluator = Evaluator(2, self.device)
+        else:
+            self.train_step = make_train_step(
+                self.model, self.optimizer, losses[0], schedule,
+                compute_dtype=args.dtype, generator=self.generator,
+                remat=args.remat)
+            self.eval_step = make_eval_step(self.model, self.nclass, losses[1])
         self.step = 0
         self.evaluator = Evaluator(self.nclass, self.device)
         self.best_pred = 0.0
@@ -148,34 +171,56 @@ class Trainer:
                                    self.best_pred, is_best=is_best,
                                    step=self.step)
 
-    # -- one training epoch (active_train.py:89-127) --
-    def training(self, epoch: int) -> float:
+    # -- one training epoch (active_train.py:89-127,
+    #    accuracy_predictor_train.py:81-155) --
+    def training(self, epoch: int, w_dl: Optional[float] = None,
+                 w_un: Optional[float] = None) -> float:
+        """One epoch; the dual trainer takes the epoch's loss weights."""
         num_img_tr = len(self.train_loader)
         self.model.train()
+        weights = (w_dl, w_un) if self.dual_head else ()
+        # the dual trainer's panel shows one train batch, picked over the
+        # train loader (accuracy_predictor_train.py:91) from the host stream
+        vis_index = (int(self.rng.random() * num_img_tr)
+                     if self.dual_head and self.writer is not None else -1)
+        vis_batch = None
         device_losses, lrs = [], []
         epoch_start = time.perf_counter()
         n_images = 0
-        for batch in self.train_loader.device_batches():
+        for i, batch in enumerate(self.train_loader.device_batches()):
             n_images += batch["nvalid"]
-            out = self.train_step(batch, self.step, *self._geometry)
+            if i == vis_index:
+                vis_batch = batch
+            out = self.train_step(batch, self.step, *weights, *self._geometry)
             self.step += 1
-            device_losses.append(out["loss"])
+            device_losses.append(torch.stack(
+                [out[k] for k in ("loss", "loss_dl", "loss_un") if k in out]))
             lrs.append(out["lr"])
         losses = torch.stack(device_losses).tolist() if device_losses else []
         train_loss = 0.0
         for i, (loss, lr) in enumerate(zip(losses, lrs)):
-            train_loss += loss
+            train_loss += loss[0]
             if self.writer is not None:
-                self.writer.add_scalar("train/total_loss_iter", loss,
-                                       i + num_img_tr * epoch)
+                it = i + num_img_tr * epoch
+                self.writer.add_scalar("train/total_loss_iter", loss[0], it)
+                if self.dual_head:
+                    self.writer.add_scalar("train/total_loss_iter_dl", loss[1], it)
+                    self.writer.add_scalar("train/total_loss_iter_un", loss[2], it)
                 if self.args.use_lr_scheduler:
-                    self.writer.add_scalar("train/learning_rate", lr,
-                                           i + num_img_tr * epoch)
+                    self.writer.add_scalar("train/learning_rate", lr, it)
         # the losses' fetch above waited for the card: the clock is honest
         imgs_per_sec = n_images / max(time.perf_counter() - epoch_start, 1e-9)
         if self.writer is not None:
             self.writer.add_scalar("train/total_loss_epoch", train_loss, epoch)
             self.writer.add_scalar("train/imgs_per_sec", imgs_per_sec, epoch)
+        if vis_batch is not None:
+            # predicted at the epoch's end with the eval step, as the JAX
+            # trainer does (the reference logs the mid-epoch output)
+            out = self.eval_step(vis_batch, self.args.batch_size, *weights)
+            self.summary.create_single_visualization(
+                self.writer, f"train/run_{self.num_current_labeled_samples:04d}",
+                self.args.dataset, vis_batch["image"], vis_batch["label"],
+                out["pred"], out["unet_target"], out["err_pred"], epoch)
         print(f"[Epoch: {epoch}] Loss: {train_loss:.3f} "
               f"BestPred: {self.best_pred:.3f} "
               f"({imgs_per_sec:.1f} imgs/s)")
@@ -183,18 +228,29 @@ class Trainer:
             self._save(epoch, is_best=False)
         return train_loss
 
-    # -- validation (active_train.py:129-194) --
-    def validation(self, epoch: int):
+    # -- validation (active_train.py:129-194,
+    #    accuracy_predictor_train.py:157-241) --
+    def validation(self, epoch: int, w_dl: Optional[float] = None,
+                   w_un: Optional[float] = None):
+        """The epoch's validation; the dual trainer takes the epoch's loss
+        weights and returns the 5-tuple panel."""
         self.evaluator.reset()
+        weights = (w_dl, w_un) if self.dual_head else ()
+        if self.dual_head:
+            self.unet_evaluator.reset()
         visualization_index = int(self.rng.random() * len(self.val_loader))
         vis = None
         device_losses = []
         for i, batch in enumerate(self.val_loader.device_batches()):
-            out = self.eval_step(batch, batch["nvalid"])
+            out = self.eval_step(batch, batch["nvalid"], *weights)
             device_losses.append(out["loss"])
             self.evaluator.add_matrix(out["confusion"])
+            if self.dual_head:
+                self.unet_evaluator.add_matrix(out["unet_confusion"])
             if i == visualization_index:
                 vis = [batch["image"], batch["label"], out["pred"]]
+                if self.dual_head:
+                    vis += [out["unet_target"], out["err_pred"]]
         test_loss = 0.0
         for loss in torch.stack(device_losses).tolist():
             test_loss += loss
@@ -209,6 +265,10 @@ class Trainer:
             self.writer.add_scalar("val/Acc", Acc, epoch)
             self.writer.add_scalar("val/Acc_class", Acc_class, epoch)
             self.writer.add_scalar("val/fwIoU", FWIoU, epoch)
+            if self.dual_head:
+                self.writer.add_scalar("val/UNetAcc",
+                                       self.unet_evaluator.Pixel_Accuracy(),
+                                       epoch)
         print(f"Validation: [Epoch: {epoch}] Acc:{Acc}, Acc_class:{Acc_class},"
               f" mIoU:{mIoU}, fwIoU: {FWIoU} Loss: {test_loss:.3f}")
 

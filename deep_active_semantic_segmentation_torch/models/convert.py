@@ -1,14 +1,16 @@
 """Carry weights across from the JAX package's flax trees.
 
-``flax_to_deeplab_state_dict`` and ``flax_to_enet_state_dict`` are the
-exact inverses of the JAX package's ``models/pretrained.py`` mappings
-(``mobilenet_state_dict_to_flax`` with ``deeplab_state_dict_to_flax``, and
-``enet_state_dict_to_flax``): each takes the (params, batch_stats) trees
+``flax_to_deeplab_state_dict``, ``flax_to_enet_state_dict`` and
+``flax_to_unet_state_dict`` are the exact inverses of the JAX package's
+``models/pretrained.py`` mappings (``mobilenet_state_dict_to_flax`` with
+``deeplab_state_dict_to_flax``, ``enet_state_dict_to_flax`` and
+``unet_state_dict_to_flax``): each takes the (params, batch_stats) trees
 as numpy and returns a ``state_dict`` under the reference's torch key
 names, which are also this package's module names. So the result loads
 with ``model.load_state_dict`` (strict), a reference checkpoint loads
 unchanged, and the JAX package's mapping takes the result back bit for
-bit.
+bit. ``flax_to_accuracy_predictor_state_dict`` puts the two heads of the
+two-headed model under ``deeplab.`` and ``unet.``.
 
 Rules: conv kernels (kh, kw, I, O) -> (O, I, kh, kw), the same transpose
 for depthwise kernels ((kh, kw, 1, C) -> (C, 1, kh, kw)); transposed-conv
@@ -178,3 +180,38 @@ def flax_to_enet_state_dict(params: Dict, batch_stats: Dict) -> "OrderedDict[str
     regular("regular5_1")
     w.sd["transposed_conv.weight"] = _tconv(params["transposed_conv"]["kernel"])
     return w.sd
+
+
+_UNET_BLOCKS = ("dconv_down1", "dconv_down2", "dconv_down3", "dconv_down4",
+                "dconv_up3", "dconv_up2", "dconv_up1")
+
+
+def flax_to_unet_state_dict(params: Dict, batch_stats: Dict,
+                            prefix: str = "") -> "OrderedDict[str, torch.Tensor]":
+    """JAX UNet (params, batch_stats) trees -> reference-named state_dict
+    (keys under ``prefix``): each double conv's convs at ``.0`` / ``.3``,
+    its BNs at ``.1`` / ``.4``."""
+    w = _Writer(params, batch_stats)
+    for name in _UNET_BLOCKS:
+        for j, (c, b) in enumerate(((0, 1), (3, 4))):
+            w.conv((name, f"conv{j}"), f"{prefix}{name}.{c}")
+            w.bn((name, f"bn{j}"), f"{prefix}{name}.{b}")
+    w.conv(("conv_last",), f"{prefix}conv_last")
+    return w.sd
+
+
+def flax_to_accuracy_predictor_state_dict(
+        params: Dict, batch_stats: Dict, backbone: str = "mobilenet",
+        symmetry: bool = False) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``DeepLabAccuracyPredictor`` trees (a DeepLab segmentation head)
+    -> state_dict: the segmentation head under ``deeplab.``, the error head
+    (the UNet, or with ``symmetry`` a second DeepLab) under ``unet.``."""
+    sd = OrderedDict((f"deeplab.{k}", v) for k, v in flax_to_deeplab_state_dict(
+        params["deeplab"], batch_stats["deeplab"], backbone).items())
+    if symmetry:
+        sd.update((f"unet.{k}", v) for k, v in flax_to_deeplab_state_dict(
+            params["unet"], batch_stats["unet"], backbone).items())
+    else:
+        sd.update(flax_to_unet_state_dict(params["unet"], batch_stats["unet"],
+                                          prefix="unet."))
+    return sd

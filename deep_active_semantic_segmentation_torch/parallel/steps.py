@@ -1,5 +1,6 @@
 """Train and eval steps (parity: the JAX package's parallel/steps.py,
-``make_train_step:83`` and ``make_eval_step:344``).
+``make_train_step:83``, ``make_eval_step:344`` and the two-headed
+``make_dual_train_step:228`` / ``make_dual_eval_step:306``).
 
 Batches arrive on the device as the uint8 wire: NHWC uint8 images, which
 ``ingest`` normalizes with the host Normalize's f32 math
@@ -37,6 +38,18 @@ def ingest(batch):
     return normalize_on_device(batch["image"]), batch["label"].long()
 
 
+def _autocast_bf16(compute_dtype: str, remat: bool) -> bool:
+    """Whether a train step runs under bf16 autocast; refuses ``remat``
+    (see ``make_train_step``) and unknown dtypes."""
+    if remat:
+        raise NotImplementedError(
+            "--remat is not ported: activation checkpointing would redraw "
+            "the dropout masks from the explicit generator (ROADMAP A4)")
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype '{compute_dtype}'")
+    return compute_dtype == "bfloat16"
+
+
 def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
                     compute_dtype: str = "float32",
                     generator: Optional[torch.Generator] = None,
@@ -53,13 +66,7 @@ def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
     generators' state for its recompute, not an explicit dropout
     generator's, so the recomputed forward would draw other masks and the
     gradients would be wrong."""
-    if remat:
-        raise NotImplementedError(
-            "--remat is not ported: activation checkpointing would redraw "
-            "the dropout masks from the explicit generator (ROADMAP A4)")
-    if compute_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"compute_dtype '{compute_dtype}'")
-    bf16 = compute_dtype == "bfloat16"
+    bf16 = _autocast_bf16(compute_dtype, remat)
 
     def step(batch, step_index: int, total_iters: Optional[int] = None,
              iters_per_epoch: Optional[int] = None):
@@ -75,6 +82,83 @@ def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
         set_lr(optimizer, lr)
         optimizer.step()
         return {"loss": loss.detach(), "lr": lr}
+
+    return step
+
+
+def dual_unet_target(seg_logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """The error head's per-pixel target (accuracy_predictor_train.py
+    :106-110): 1 where the segmentation head's argmax is the label, 0 where
+    it is not, 255 where the label is ignored. Long, (B, H, W)."""
+    correct = (seg_logits.detach().argmax(dim=1) == label).long()
+    return torch.where(label == 255, 255, correct)
+
+
+def make_dual_train_step(model, optimizer, seg_loss_fn: Callable,
+                         err_loss_fn: Callable, schedule: Callable,
+                         compute_dtype: str = "float32",
+                         generator: Optional[torch.Generator] = None,
+                         remat: bool = False) -> Callable:
+    """The two-headed step: ``step(batch, step_index, w_dl, w_un,
+    total_iters=None, iters_per_epoch=None) -> {'loss', 'loss_dl',
+    'loss_un': 0-d device tensors, 'lr': float}`` with loss = w_dl *
+    seg_loss + w_un * err_loss, the error head's target from
+    ``dual_unet_target``. ``err_loss_fn`` carries the error classes'
+    weights ([w_wrong, 1 - w_wrong]). Dropout, ``compute_dtype`` and
+    ``remat`` as in ``make_train_step``.
+
+    Both terms are always in the graph: at w_dl = 0 (the staged schedule's
+    last third) the segmentation head gets a zero gradient, not none, so
+    SGD still applies its weight decay and momentum there, as the JAX
+    optimizer does (torch's SGD skips a parameter whose ``.grad`` is
+    None)."""
+    bf16 = _autocast_bf16(compute_dtype, remat)
+
+    def step(batch, step_index: int, w_dl: float, w_un: float,
+             total_iters: Optional[int] = None,
+             iters_per_epoch: Optional[int] = None):
+        image, label = ingest(batch)
+        with torch.autocast(image.device.type, dtype=torch.bfloat16,
+                            enabled=bf16):
+            seg, err = model(image, use_dropout=generator is not None,
+                             generator=generator)
+        loss_dl = seg_loss_fn(seg.float(), label)
+        loss_un = err_loss_fn(err.float(), dual_unet_target(seg, label))
+        loss = w_dl * loss_dl + w_un * loss_un
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        lr = schedule(step_index, total_iters, iters_per_epoch)
+        set_lr(optimizer, lr)
+        optimizer.step()
+        return {"loss": loss.detach(), "loss_dl": loss_dl.detach(),
+                "loss_un": loss_un.detach(), "lr": lr}
+
+    return step
+
+
+def make_dual_eval_step(model, num_classes: int, seg_loss_fn: Callable,
+                        err_loss_fn: Callable) -> Callable:
+    """``step(batch, nvalid, w_dl, w_un) -> {'loss', 'loss_dl', 'loss_un',
+    'confusion', 'unet_confusion', 'pred', 'err_pred', 'unet_target'}`` in
+    eval mode without gradients; both losses are built with
+    ``batch_average=False`` and divided by ``nvalid``, as in
+    ``make_eval_step``. ``unet_confusion`` is the 2-class confusion of the
+    error head's argmax against ``dual_unet_target``."""
+
+    @torch.no_grad()
+    def step(batch, nvalid: int, w_dl: float, w_un: float):
+        model.eval()
+        image, label = ingest(batch)
+        seg, err = model(image)
+        target = dual_unet_target(seg, label)
+        loss_dl = seg_loss_fn(seg, label) / nvalid
+        loss_un = err_loss_fn(err, target) / nvalid
+        pred, err_pred = seg.argmax(dim=1), err.argmax(dim=1)
+        return {"loss": w_dl * loss_dl + w_un * loss_un,
+                "loss_dl": loss_dl, "loss_un": loss_un,
+                "confusion": confusion_matrix(label, pred, num_classes),
+                "unet_confusion": confusion_matrix(target, err_pred, 2),
+                "pred": pred, "err_pred": err_pred, "unet_target": target}
 
     return step
 

@@ -1,11 +1,17 @@
-"""Accuracy selectors, the oracle half (parity: reference
-active_selection/accuracy.py, the JAX package's selection/accuracy.py):
-``accuracy_labels`` ranks the pool by its count of mispredicted valid
-pixels against the ground truth (accuracy.py:18-37), and
-``accuracy_eval`` replays another run's selections.txt
-(accuracy.py:185-197). The accuracy-predictor scorers (the error head,
-input gradients, the unsure score and their region maps) are not ported
-yet and raise, naming ROADMAP A13b.
+"""Accuracy selectors (parity: reference active_selection/accuracy.py,
+the JAX package's selection/accuracy.py).
+
+The oracle half: ``accuracy_labels`` ranks the pool by its count of
+mispredicted valid pixels against the ground truth (accuracy.py:18-37),
+and ``accuracy_eval`` replays another run's selections.txt
+(accuracy.py:185-197).
+
+The accuracy predictor's half, on the two-headed model: the error head's
+summed P(wrong) or predicted-wrong count (accuracy.py:39-71), the input
+gradient's norm (accuracy.py:73-96), the unsure score 4p - 4p^2
+(accuracy.py:98-117) and the error maps' regions (accuracy.py:131-183).
+These read labels only through the valid mask, so their loaders ship the
+packed 1-bit mask.
 """
 
 from __future__ import annotations
@@ -16,11 +22,8 @@ import time
 from deep_active_semantic_segmentation_torch.selection import kernels
 from deep_active_semantic_segmentation_torch.selection.base import (
     ActiveSelectionBase, ModelBundle, collect_scores, rank_descending)
-
-
-def _not_ported(*_args, **_kwargs):
-    raise NotImplementedError("the accuracy-predictor scorers are not "
-                              "ported yet (ROADMAP A13b)")
+from deep_active_semantic_segmentation_torch.selection.region_pipeline import (
+    create_region_maps_from_scorer)
 
 
 class ActiveSelectionAccuracy(ActiveSelectionBase):
@@ -42,10 +45,58 @@ class ActiveSelectionAccuracy(ActiveSelectionBase):
                 model, batch["image"], batch["label"], self.num_classes))
         return rank_descending(scores, list(images), selection_count)
 
-    get_least_accurate_samples = _not_ported
-    get_adversarially_vulnarable_samples = _not_ported
-    get_unsure_samples = _not_ported
-    get_least_accurate_region_maps = _not_ported
+    def _rank_by(self, bundle: ModelBundle, images, selection_count, kernel,
+                 *args):
+        """``images`` ranked by ``kernel(model, images, packed mask,
+        num_classes, *args, labels_packed=True)`` -> (B,) per batch, the
+        reference's stable descending sort, top ``selection_count``."""
+        self._check_bundle(bundle)
+        model = bundle.model.eval()
+        scores = collect_scores(
+            self._paths_loader(images, include_labels=True,
+                               labels_as_mask=self.num_classes),
+            lambda batch: kernel(model, batch["image"], batch["label"],
+                                 self.num_classes, *args, labels_packed=True))
+        return rank_descending(scores, list(images), selection_count)
+
+    def get_least_accurate_samples(self, bundle: ModelBundle, images,
+                                   selection_count, mode="softmax"):
+        """The images the error head finds most wrong: summed P(wrong)
+        (``softmax``) or predicted-wrong pixel count (``argmax``)."""
+        if mode not in ("softmax", "argmax"):
+            raise NotImplementedError(mode)
+        return self._rank_by(bundle, images, selection_count,
+                             kernels.error_head_scores, mode)
+
+    def get_adversarially_vulnarable_samples(self, bundle: ModelBundle, images,
+                                             selection_count):
+        """The images whose error head is most sensitive to its input
+        (``kernels.input_gradient_norms``)."""
+        return self._rank_by(bundle, images, selection_count,
+                             kernels.input_gradient_norms)
+
+    def get_unsure_samples(self, bundle: ModelBundle, images, selection_count):
+        """The images whose error head is least sure (mean 4p - 4p^2)."""
+        return self._rank_by(bundle, images, selection_count,
+                             kernels.error_head_scores, "unsure")
+
+    def get_least_accurate_region_maps(self, bundle: ModelBundle, images,
+                                       existing_regions, region_size,
+                                       selection_size):
+        """Boxes over the error head's P(wrong) maps through the region
+        pipeline (base 512 at crop -1). Returns ({path: [(r, c, size,
+        size)]}, box count)."""
+        self._check_bundle(bundle)
+        model = bundle.model.eval()
+        base_size = 512 if self.crop_size == -1 else self.crop_size
+        loader = self._paths_loader(images, include_labels=True,
+                                    labels_as_mask=self.num_classes)
+        return create_region_maps_from_scorer(
+            lambda batch: kernels.error_head_maps(
+                model, batch["image"], batch["label"], self.num_classes,
+                labels_packed=True),
+            loader, list(images), existing_regions, region_size,
+            selection_size, base_size)
 
     @staticmethod
     def wait_for_selected_samples(location_to_monitor, images,

@@ -1,8 +1,9 @@
 """Batch scoring computations shared by the selectors (parity: the JAX
 package's selection/kernels.py: the MC sweeps — dropout, input noise,
 feature noise — on DeepLab and ENet, the deterministic CEAL scores and
-weak labels, the core-set / max-subset feature taps and the oracle's
-misprediction counts).
+weak labels, the core-set / max-subset feature taps, the oracle's
+misprediction counts and the accuracy predictor's error-head scores,
+error maps and input-gradient norms).
 
 One call scores a whole batch on the device and returns (B, H, W) maps.
 The MC-dropout sweep runs the deterministic part of the network once per
@@ -273,9 +274,87 @@ def raw_features(model, images) -> torch.Tensor:
 def misprediction_counts(model, images, labels,
                          num_classes: int) -> torch.Tensor:
     """(B,) f32 oracle counts of valid pixels whose argmax is not the label
-    (accuracy.py:18-37), TF32 off; ``labels`` is the full label plane."""
+    (accuracy.py:18-37), TF32 off; ``labels`` is the full label plane. A
+    two-headed model is scored by its segmentation head."""
     with torch.inference_mode(), _deterministic_precision():
-        pred = _deterministic_logits(model, images).argmax(dim=1)
+        logits = _deterministic_logits(model, images)
+        if isinstance(logits, tuple):
+            logits = logits[0]
+        pred = logits.argmax(dim=1)
         valid = ent_ops.valid_mask(labels, num_classes)
         wrong = valid & (pred != labels.to(torch.int64))
         return wrong.sum(dim=(1, 2)).to(torch.float32)
+
+
+def _error_logits(model, images, labels, num_classes: int,
+                  labels_packed: bool):
+    """(error-head logits (B, 2, H, W), valid mask (B, H, W)) of one
+    eval-mode forward of the two-headed model."""
+    labels = _unpacked_labels(labels, images.shape[2], num_classes,
+                              labels_packed)
+    _, err = _deterministic_logits(model, images)
+    return err, ent_ops.valid_mask(labels, num_classes)
+
+
+def error_head_scores(model, images, labels, num_classes: int, mode: str,
+                      labels_packed: bool = False) -> torch.Tensor:
+    """(B,) per-image scores of the two-headed model's error head
+    (accuracy.py:39-71, 98-117), TF32 off:
+
+      'softmax' — the sum of P(wrong) (class 0) over valid pixels;
+      'argmax'  — the count of valid pixels predicted wrong;
+      'unsure'  — the mean of 4p - 4p^2, p = P(right) (class 1), over the
+                  valid pixels (at least one).
+    """
+    if mode not in ("softmax", "argmax", "unsure"):
+        raise NotImplementedError(mode)
+    with torch.inference_mode(), _deterministic_precision():
+        err, valid = _error_logits(model, images, labels, num_classes,
+                                   labels_packed)
+        if mode == "softmax":
+            y = torch.softmax(err, dim=1)[:, 0]
+        elif mode == "argmax":
+            y = 1.0 - err.argmax(dim=1).to(torch.float32)
+        else:
+            p = torch.softmax(err, dim=1)[:, 1]
+            y = 4.0 * p - 4.0 * p * p
+        total = torch.where(valid, y, 0.0).sum(dim=(1, 2))
+        if mode == "unsure":
+            total = total / valid.sum(dim=(1, 2)).clamp_min(1)
+        return total
+
+
+def error_head_maps(model, images, labels, num_classes: int,
+                    labels_packed: bool = False) -> torch.Tensor:
+    """(B, H, W) P(wrong) maps of the error head, 0 at ignored pixels
+    (accuracy.py:131-161), TF32 off."""
+    with torch.inference_mode(), _deterministic_precision():
+        err, valid = _error_logits(model, images, labels, num_classes,
+                                   labels_packed)
+        return torch.where(valid, torch.softmax(err, dim=1)[:, 0], 0.0)
+
+
+def input_gradient_norms(model, images, labels, num_classes: int,
+                         labels_packed: bool = False) -> torch.Tensor:
+    """(B,) mean over all H*W pixels of ||d sum(error logits) / d input||_2
+    (accuracy.py:73-96), the input being the error head's
+    ``cat([softmax(seg), normalized image])`` and the norm taken over its
+    channels, 0 at ignored pixels; the error head in eval mode, TF32 off.
+    The only selector that runs backward: call it outside
+    ``torch.inference_mode``."""
+    labels = _unpacked_labels(labels, images.shape[2], num_classes,
+                              labels_packed)
+    if model.training:
+        raise ValueError("deterministic scoring needs the model in eval mode "
+                         "(BN at running statistics, no dropout)")
+    with _deterministic_precision():
+        x = normalize_on_device(images)
+        with torch.no_grad():
+            probs = torch.softmax(model.deeplab(x), dim=1)
+        inp = torch.cat([probs, x], dim=1).requires_grad_(True)
+        with torch.enable_grad():
+            out = model(x, unet_only_input=inp)
+            (grad,) = torch.autograd.grad(out.sum(), inp)
+        norms = grad.square().sum(dim=1).sqrt()
+        valid = ent_ops.valid_mask(labels, num_classes)
+        return torch.where(valid, norms, 0.0).mean(dim=(1, 2))

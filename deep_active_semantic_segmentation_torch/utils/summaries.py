@@ -1,6 +1,7 @@
 """Tensorboard summaries (parity: the JAX package's utils/summaries.py,
 itself the reference utils/summaries.py:11-67): the same writer factory,
-scalar tag schema and Image / Prediction / Groundtruth grids.
+scalar tag schema, Image / Prediction / Groundtruth grids and the
+two-headed model's accuracy panel.
 tensorboardX is optional: without it a JSONL writer keeps the scalar
 schema (tag, value, step), so a run on a machine without it still logs
 everything. Images are NHWC uint8 wire batches; targets and predictions
@@ -15,7 +16,7 @@ import os
 import numpy as np
 
 from deep_active_semantic_segmentation_torch.data.colormaps import (
-    map_segmentations_to_colors)
+    map_segmentation_to_colors, map_segmentations_to_colors)
 
 try:
     from tensorboardX import SummaryWriter
@@ -77,3 +78,27 @@ class TensorboardSummary:
         writer.add_image(f"{prefix}/Groundtruth",
                          _grid(map_segmentations_to_colors(
                              target.astype(np.uint8), dataset)), global_step)
+
+    def create_single_visualization(self, writer, name, dataset, image,
+                                    target_0, output_0, target_1, output_1,
+                                    global_step):
+        """The two-headed panel (the JAX package's summaries.py:89-122,
+        reference summaries.py:45-58), which the dual trainer writes every
+        train epoch and the accuracy-predictor driver at the end of every
+        round: for each of the first 3 samples one 2x3 tile, [image | seg
+        prediction | error prediction] over [zeros | seg ground truth |
+        error target], the error maps in the ``binary`` colormap. image
+        (B,H,W,3) uint8; the rest (B,H,W) class maps."""
+        image = _host(image)
+        maps = [_host(m) for m in (output_0, output_1, target_0, target_1)]
+        for k in range(min(3, image.shape[0])):
+            seg_pred, acc_pred, seg_gt, acc_gt = (
+                map_segmentation_to_colors(m[k].astype(np.uint8), cmap)
+                for m, cmap in zip(maps, (dataset, "binary", dataset, "binary")))
+            top = np.concatenate([image[k].astype(np.float32) / 255.0,
+                                  seg_pred, acc_pred], axis=1)
+            bottom = np.concatenate([np.zeros_like(seg_gt), seg_gt, acc_gt],
+                                    axis=1)
+            writer.add_image(f"{name}/accuracy_predictions_{k}",
+                             np.transpose(np.concatenate([top, bottom], axis=0),
+                                          (2, 0, 1)), global_step)

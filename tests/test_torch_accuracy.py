@@ -159,10 +159,45 @@ def test_wait_for_selected_samples_polls_and_times_out(tmp_path):
                                          poll_seconds=0.01) == [b"c", b"a", b"b"]
 
 
-def test_accuracy_predictor_scorers_name_their_item():
-    sel = get_active_selection_class("accuracy_labels", NUM_CLASSES, None, SIDE,
+def test_accuracy_predictor_scorers_name_their_item(dataset_root):
+    """The accuracy-predictor scorers are ported (ROADMAP A13b, done): on a
+    two-headed model each ranks the pool by its kernel's scores, and the
+    region maps return boxes of the requested size. Their parity with the
+    JAX package is held in test_torch_accuracy_driver.py."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+
+    root, keys = dataset_root
+    keys = keys[:5]
+    store = PortDirectoryStore(os.path.join(root, "cityscapes", "train"))
+    sel = get_active_selection_class("accuracy_labels", NUM_CLASSES, store, SIDE,
                                      BATCH, device="cpu")
-    for name in ("get_least_accurate_samples", "get_adversarially_vulnarable_samples",
-                 "get_unsure_samples", "get_least_accurate_region_maps"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            getattr(sel, name)(None, [], 1)
+    model = build_model("accuracy_predictor", NUM_CLASSES, backbone="mobilenet",
+                        device="cpu")
+    bundle = ModelBundle(model, torch.device("cpu"))
+    batches = list(sel._paths_loader(keys, include_labels=True,
+                                     labels_as_mask=NUM_CLASSES))
+
+    def ranked(score):
+        scores = [v for b in batches for v in score(b)[:b["nvalid"]].tolist()]
+        return [keys[i] for i in np.argsort(-np.asarray(scores), kind="stable")[:2]]
+
+    kw = dict(num_classes=NUM_CLASSES, labels_packed=True)
+    for picks, score in (
+            (sel.get_least_accurate_samples(bundle, keys, 2),
+             lambda b: pt_kernels.error_head_scores(model, b["image"], b["label"],
+                                                    mode="softmax", **kw)),
+            (sel.get_least_accurate_samples(bundle, keys, 2, "argmax"),
+             lambda b: pt_kernels.error_head_scores(model, b["image"], b["label"],
+                                                    mode="argmax", **kw)),
+            (sel.get_unsure_samples(bundle, keys, 2),
+             lambda b: pt_kernels.error_head_scores(model, b["image"], b["label"],
+                                                    mode="unsure", **kw)),
+            (sel.get_adversarially_vulnarable_samples(bundle, keys, 2),
+             lambda b: pt_kernels.input_gradient_norms(model, b["image"], b["label"],
+                                                       **kw))):
+        assert picks == ranked(score)
+    regions, count = sel.get_least_accurate_region_maps(bundle, keys, [[]] * 5, 9, 1)
+    assert 1 <= count == sum(len(v) for v in regions.values())
+    assert all(r[2:] == (9, 9) for v in regions.values() for r in v)
+    with pytest.raises(NotImplementedError):
+        sel.get_least_accurate_samples(bundle, keys, 2, "entropy")

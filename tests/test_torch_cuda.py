@@ -274,3 +274,70 @@ def test_greedy_selection_on_the_card_equals_the_cpu(cuda_device):
         card = distance.max_representative(feats.to(cuda_device),
                                            cand.to(cuda_device), 40)
         assert card.cpu().tolist() == cpu.tolist()
+
+
+@pytest.mark.cuda
+def test_dual_train_step_on_the_card_equals_the_cpu(cuda_device):
+    """One f32 dual step of the accuracy predictor (dropout off, BN at
+    running statistics, TF32 off) from the same weights on the card and on
+    the CPU: the three losses within 1e-4 relative, the updated parameters
+    within 1e-3 of the largest weight (chip_smoke.py's card-vs-CPU bars)."""
+    import copy
+
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import make_schedule
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_dual_train_step)
+
+    gen = torch.Generator().manual_seed(2)
+    cpu_model = build_model("accuracy_predictor", 21, device="cpu", generator=gen)
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda_device)}
+    image = torch.randint(0, 256, (2, 65, 65, 3), dtype=torch.uint8, generator=gen)
+    label = torch.randint(0, 21, (2, 65, 65), dtype=torch.uint8, generator=gen)
+    label[:, :5] = 255
+    losses = {}
+    with kernels._deterministic_precision():
+        for dev, model in models.items():
+            model.train()
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.eval()
+            opt = build_optimizer("SGD", param_groups(model, "accuracy_predictor"))
+            step = make_dual_train_step(
+                model, opt, build_loss("ce"),
+                build_loss("ce", class_weights=torch.tensor([0.75, 0.25], device=dev)),
+                make_schedule("step", 0.007, 2, 3))
+            out = step({"image": image.to(dev), "label": label.to(dev)}, 0, 0.7, 0.3)
+            assert out["loss"].device.type == dev
+            losses[dev] = [float(out[k]) for k in ("loss", "loss_dl", "loss_un")]
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), losses
+    card = dict(models["cuda"].named_parameters())
+    scale = max(p.detach().abs().max().item() for p in cpu_model.parameters())
+    assert max((card[n].detach().cpu() - p.detach()).abs().max().item()
+               for n, p in cpu_model.named_parameters()) <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+def test_input_gradient_norms_on_the_card_equal_the_cpu(cuda_device):
+    """The only backward among the selectors, on the card and on the CPU
+    from the same weights (TF32 off in both): within 1e-3 relative, the bar
+    of test_torch_accuracy_driver.py (a ReLU input that rounds to the
+    other side of 0 switches a path of the backward off)."""
+    import copy
+
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+
+    gen = torch.Generator().manual_seed(3)
+    cpu_model = build_model("accuracy_predictor", 21, device="cpu", generator=gen)
+    image = torch.randint(0, 256, (3, 97, 97, 3), dtype=torch.uint8, generator=gen)
+    label = torch.randint(0, 21, (3, 97, 97), dtype=torch.uint8, generator=gen)
+    label[:, :9] = 255
+    got = kernels.input_gradient_norms(copy.deepcopy(cpu_model).to(cuda_device),
+                                       image.to(cuda_device), label.to(cuda_device), 21)
+    want = kernels.input_gradient_norms(cpu_model, image, label, 21)
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=0)

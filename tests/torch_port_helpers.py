@@ -65,6 +65,28 @@ def port_deeplab(params, stats, num_classes: int = NUM_CLASSES):
     return model.eval()
 
 
+def draw_like(shapes, rng: np.random.RandomState):
+    """A numpy tree shaped as ``shapes`` (a ``jax.eval_shape`` tree of
+    params or batch_stats), every leaf drawn from ``rng``: kernels
+    kaiming-normal (fan_in), BN scale and var in [0.5, 1.5), conv and BN
+    bias and mean ~0.1 N(0, 1), PReLU slopes in [0.05, 0.3)."""
+
+    def draw(path, x):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(x.shape[:-1]))
+            return (rng.randn(*x.shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        if name in ("mean", "bias"):
+            return (0.1 * rng.randn(*x.shape)).astype(np.float32)
+        if name == "negative_slope":
+            return rng.uniform(0.05, 0.3, x.shape).astype(np.float32)
+        raise KeyError(name)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def jax_enet(seed: int = 0, num_classes: int = NUM_CLASSES, **relu):
     """(flax ENet, params, batch_stats) as numpy trees; ``relu`` takes
     encoder_relu / decoder_relu (the JAX factory's config sets both True,
@@ -80,23 +102,64 @@ def jax_enet(seed: int = 0, num_classes: int = NUM_CLASSES, **relu):
                             {"params": jax.random.PRNGKey(0)},
                             jax.ShapeDtypeStruct((1, 32, 32, 3), jnp.float32))
     rng = np.random.RandomState(seed)
+    return model, draw_like(shapes["params"], rng), draw_like(shapes["batch_stats"], rng)
 
-    def draw(path, x):
-        name = path[-1].key
-        if name == "kernel":
-            fan_in = int(np.prod(x.shape[:-1]))
-            return (rng.randn(*x.shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
-        if name in ("scale", "var"):
-            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
-        if name in ("mean", "bias"):
-            return (0.1 * rng.randn(*x.shape)).astype(np.float32)
-        if name == "negative_slope":
-            return rng.uniform(0.05, 0.3, x.shape).astype(np.float32)
-        raise KeyError(name)
 
-    params = jax.tree_util.tree_map_with_path(draw, shapes["params"])
-    stats = jax.tree_util.tree_map_with_path(draw, shapes["batch_stats"])
-    return model, params, stats
+def predictor_state_dict_to_flax(state_dict, symmetry: bool = False):
+    """An accuracy predictor's state_dict -> (params, batch_stats) trees
+    through the JAX package's own mappings, head by head."""
+    from deep_active_semantic_segmentation_tpu.models.pretrained import (
+        deeplab_state_dict_to_flax, unet_state_dict_to_flax)
+
+    sd = {k: v.detach().numpy() for k, v in state_dict.items()}
+    heads = {}
+    for head in ("deeplab", "unet"):
+        if head == "unet" and not symmetry:
+            heads[head] = unet_state_dict_to_flax(sd, prefix="unet.")
+        else:
+            n = len(head) + 1
+            heads[head] = deeplab_state_dict_to_flax(
+                {k[n:]: v for k, v in sd.items() if k.startswith(head + ".")})
+    return ({h: t[0] for h, t in heads.items()}, {h: t[1] for h, t in heads.items()})
+
+
+def jax_predictor(seed: int, num_classes: int, symmetry: bool = False):
+    """(the JAX factory's accuracy predictor, params, batch_stats): the
+    port's init from ``seed`` (kaiming-normal kernels) with every BN's
+    scale and var redrawn in [0.5, 1.5) and its bias and mean ~0.1 N(0, 1),
+    carried into the JAX trees by the JAX package's own mappings (no JAX
+    init to trace)."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_tpu.models.factory import (
+        build_model as jx_build_model)
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model("accuracy_predictor", num_classes, device="cpu",
+                        generator=gen, symmetry=symmetry)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+    params, stats = predictor_state_dict_to_flax(model.state_dict(), symmetry)
+    return (jx_build_model("accuracy_predictor", num_classes, backbone="mobilenet",
+                           symmetry=symmetry), params, stats)
+
+
+def port_predictor(params, stats, num_classes: int, symmetry: bool = False):
+    """The port's accuracy predictor (CPU, eval mode) holding the JAX
+    weights."""
+    from deep_active_semantic_segmentation_torch.models.convert import (
+        flax_to_accuracy_predictor_state_dict)
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+
+    model = build_model("accuracy_predictor", num_classes, device="cpu",
+                        symmetry=symmetry)
+    model.load_state_dict(flax_to_accuracy_predictor_state_dict(
+        params, stats, symmetry=symmetry))
+    return model
 
 
 def port_enet(params, stats, num_classes: int = NUM_CLASSES, **relu):
@@ -126,15 +189,17 @@ def write_pool(store, n: int, seed: int, hw=(40, 90)):
     return keys
 
 
-def write_dataset(root: str, n_train: int = 16, seed_sets=(("set_0.txt", 5),)):
-    """The loops' dataset layout under ``root``: an ``n_train``-image
-    Cityscapes train split, a 4-image val split and seed sets (name, the
-    first ``k`` train images). Returns the train keys."""
+def write_dataset(root: str, n_train: int = 16, seed_sets=(("set_0.txt", 5),),
+                  family: str = "cityscapes"):
+    """The loops' dataset layout under ``root``: an ``n_train``-image train
+    split of ``family`` (``cityscapes`` or ``pascal``; labels in [0, 19)
+    either way), a 4-image val split and seed sets (name, the first ``k``
+    train images). Returns the train keys."""
     import os
 
     from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
 
-    city = os.path.join(root, "cityscapes")
+    city = os.path.join(root, family)
     keys = write_pool(DirectoryStore(os.path.join(city, "train"), readonly=False),
                       n_train, seed=0)
     write_pool(DirectoryStore(os.path.join(city, "val"), readonly=False), 4, seed=1)
@@ -145,13 +210,15 @@ def write_dataset(root: str, n_train: int = 16, seed_sets=(("set_0.txt", 5),)):
     return keys
 
 
-def select_with_shared_weights(monkeypatch, params, stats):
-    """Make both packages' AL loops select with one DeepLab's weights: the
+def select_with_shared_weights(monkeypatch, params, stats, state_dict=None):
+    """Make both packages' AL loops select with one set of weights: the
     port trainer's best-checkpoint reload loads (params, stats) as the
-    converted state_dict, and the JAX trainer starts every round on them,
-    so a deterministic mode must write the same selections.txt in both.
-    The JAX loop's own initialization, training and validation are
-    skipped (its selection is the reference here); the port's run."""
+    converted ``state_dict`` (a DeepLab's by default; pass the accuracy
+    predictor's for the two-headed driver), and the JAX trainer starts
+    every round on them, so a deterministic mode must write the same
+    selections.txt in both. The JAX loop's own initialization, training
+    and validation are skipped (its selection is the reference here); the
+    port's run."""
     import types
 
     from deep_active_semantic_segmentation_torch.engine import trainer as pt_trainer
@@ -161,22 +228,24 @@ def select_with_shared_weights(monkeypatch, params, stats):
     from deep_active_semantic_segmentation_tpu.models.factory import (
         build_model as jx_build_model)
 
-    state_dict = flax_to_deeplab_state_dict(params, stats)
+    if state_dict is None:
+        state_dict = flax_to_deeplab_state_dict(params, stats)
 
     def jax_initialize(self):
         args = self.args
-        self.model = jx_build_model(args.architecture, self.nclass,
-                                    backbone=args.backbone,
-                                    output_stride=args.out_stride,
-                                    mc_dropout=args.mc_dropout)
+        self.model = jx_build_model(
+            "accuracy_predictor" if self.dual_head else args.architecture,
+            self.nclass, backbone=args.backbone, output_stride=args.out_stride,
+            mc_dropout=args.mc_dropout, symmetry=getattr(args, "symmetry", False))
         self.state = types.SimpleNamespace(params=params, batch_stats=stats)
 
     monkeypatch.setattr(pt_trainer.Trainer, "load_best_checkpoint",
                         lambda self: self.model.load_state_dict(state_dict))
     monkeypatch.setattr(jx_trainer.Trainer, "initialize", jax_initialize)
-    monkeypatch.setattr(jx_trainer.Trainer, "training", lambda self, epoch: 0.0)
+    monkeypatch.setattr(jx_trainer.Trainer, "training",
+                        lambda self, epoch, *weights: 0.0)
     monkeypatch.setattr(jx_trainer.Trainer, "validation",
-                        lambda self, epoch: (0.0, 0.0, 0.0, 0.0, 0.0, None))
+                        lambda self, epoch, *weights: (0.0, 0.0, 0.0, 0.0, 0.0, None))
     monkeypatch.setattr(jx_trainer.Trainer, "load_best_checkpoint",
                         lambda self: None)
 
