@@ -22,9 +22,11 @@
    of 20 records written once: one MC-dropout vote-entropy selection
    query at full width through the selector a user calls, for
    - DeepLab-v3+/MobileNetV2 (the canonical experiment: os16, 19 classes,
-     crop 513, batch 5, 20 MC steps; votes through B1), and
+     crop 513, batch 5, 20 MC steps; votes through B1),
    - ENet (the JAX package's factory config: 19 classes, crop 512,
-     batch 8, 20 MC steps; votes through B2).
+     batch 8, 20 MC steps; votes through B2), and
+   - DeepLab-v3+/ResNet-50 (the CLI's default backbone; as the first,
+     its backbone hoisted once per batch; votes through B1).
    Every launch count is set to 0 just before each query and read just
    after it. Then one batch is re-scored with the fused kernel off under
    the same dropout masks and the entropy maps are compared, and the
@@ -95,7 +97,25 @@
    region maps, each timed 3 times, their picks equal a re-score's and
    the CPU's (TF32 off; a near-tie within 1e-5 relative allowed and
    printed), the gradient query's peak memory.
-11. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+11. Slice 8, train.py's path and the rest of the zoo, every phase with
+   its launch counts set to 0 just before and read just after (no B1 or
+   B2 launch in any): the native resampler (built with g++ at the start,
+   beside the kernels) byte-equal to PIL on the records, the host
+   geometry of one batch natively and through PIL, and in turns (PIL,
+   native, native, PIL) a passive Loader epoch and the canonical
+   dropout query; the train steps of DeepLab-ResNet-50 (crop 513, batch
+   4, SGD poly), ENet (crop 512, batch 4, Adam) and FastSCNN (crop 512,
+   batch 4) in bf16 and f32 with peak memory and an eval confusion
+   against a host bincount, and one f32 step of each against the CPU;
+   train_torch.main with train.py's flags (ResNet-50) over 12 + 4
+   records, twice and then a resume (experiment_0..2, best_pred.txt,
+   the model_best promotion, the resume's epoch, one train grid per
+   epoch); the pretrained-backbone transplant of a seeded ResNet-50 and
+   MobileNetV2 checkpoint at every initialize(); the ENet-headed
+   accuracy predictor's dual step at Pascal's 512 letterbox. The
+   ResNet-50 DeepLab variance query (20 images, batch 5) runs with the
+   main paths of 4: B1 80 launches.
+12. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -142,6 +162,13 @@ PATHS = {
                                mc_dropout=True)),
     "enet": dict(crop=512, batch=8, kernel="tconv2x_argmax_parity_major",
                  build={}),
+    # the CLI's default backbone: its decoder sits at 1/4, so at 513² the
+    # votes go through B1, and its backbone (no dropout site) runs once per
+    # batch
+    "deeplab_resnet50": dict(crop=513, batch=5, kernel="upsample4_argmax",
+                             model="deeplab",
+                             build=dict(backbone="resnet", output_stride=16,
+                                        mc_dropout=True)),
 }
 
 
@@ -584,8 +611,8 @@ def main_path_phase(torch, seed: int, arch: str, store, paths):
     cfg = PATHS[arch]
     crop, batch_size, kernel = cfg["crop"], cfg["batch"], cfg["kernel"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = build_model(arch, NUM_CLASSES, device="cuda", generator=gen,
-                        **cfg["build"])
+    model = build_model(cfg.get("model", arch), NUM_CLASSES, device="cuda",
+                        generator=gen, **cfg["build"])
     bundle = ModelBundle(model, torch.device("cuda"))
     sel = get_active_selection_class("variance", NUM_CLASSES, store, crop,
                                      batch_size, device="cuda")
@@ -869,8 +896,11 @@ def train_phase(torch, seed: int, root: Path):
     return out
 
 
-def card_vs_cpu_phase(torch, seed: int):
-    """One train step at 65 px, batch 2, from the same weights on the card
+def card_vs_cpu_phase(torch, seed: int, arch: str = "deeplab",
+                      backbone: str = "mobilenet", side: int = 65,
+                      dtypes=("float32", "float64")):
+    """One train step of ``arch`` (SGD; at ``side`` px, 65 by default),
+    batch 2, from the same weights on the card
     and on the CPU, TF32 off, dropout off, BN at running statistics; in
     f32 (the uint8 wire), then with f64 weights and a host-normalized f64
     image (the loss stays f32). The loss agrees within CPU_LOSS_RTOL. The
@@ -890,8 +920,8 @@ def card_vs_cpu_phase(torch, seed: int):
     from deep_active_semantic_segmentation_torch.parallel.steps import make_train_step
 
     rng = np.random.RandomState(seed)
-    image = rng.randint(0, 256, (2, 65, 65, 3), dtype=np.uint8)
-    label = rng.randint(0, NUM_CLASSES, (2, 65, 65)).astype(np.uint8)
+    image = rng.randint(0, 256, (2, side, side, 3), dtype=np.uint8)
+    label = rng.randint(0, NUM_CLASSES, (2, side, side)).astype(np.uint8)
     label[:, :6] = 255
     cw = rng.uniform(0.5, 2.0, NUM_CLASSES).astype(np.float32)
     images = {"float32": image,
@@ -901,16 +931,16 @@ def card_vs_cpu_phase(torch, seed: int):
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     try:
-        for dtype in ("float32", "float64"):
-            cpu_model = build_model("deeplab", NUM_CLASSES, mc_dropout=True,
-                                    device="cpu",
+        for dtype in dtypes:
+            cpu_model = build_model(arch, NUM_CLASSES, backbone=backbone,
+                                    mc_dropout=True, device="cpu",
                                     generator=torch.Generator().manual_seed(seed))
             cpu_model = cpu_model.to(getattr(torch, dtype))
             models = {"cpu": cpu_model, DEVICE: copy.deepcopy(cpu_model).to(DEVICE)}
             losses = {}
             for dev, model in models.items():
                 freeze_bn(model)
-                opt = build_optimizer("SGD", param_groups(model, "deeplab"))
+                opt = build_optimizer("SGD", param_groups(model, arch))
                 step = make_train_step(model, opt, build_loss(
                     "ce", class_weights=torch.from_numpy(cw).to(dev)),
                     make_schedule("poly", 0.01, 200, 4))
@@ -926,7 +956,8 @@ def card_vs_cpu_phase(torch, seed: int):
             model_rel = max((card[n].detach().cpu() - p.detach()).abs().max().item()
                             for n, p in models["cpu"].named_parameters()) / max(
                 p.detach().abs().max().item() for p in models["cpu"].parameters())
-            print(f"card vs CPU, one {dtype} step at 65 px: loss {losses[DEVICE]:.9f} "
+            print(f"card vs CPU, one {dtype} {arch}/{backbone} step at {side} px: "
+                  f"loss {losses[DEVICE]:.9f} "
                   f"vs {losses['cpu']:.9f} (rel {loss_rel:.2e}, bar {CPU_LOSS_RTOL}); "
                   f"parameters: largest difference {model_rel:.2e} of the largest "
                   f"weight; worst tensors {[(n, f'{r:.2e}') for r, n in per_tensor[-3:]]}"
@@ -2354,6 +2385,438 @@ def accuracy_query_phase(torch, seed: int, root: Path, ckpt: str):
 
 
 
+# ------------------------------------------- slice 8: train.py and the zoo
+
+# train.py's passive run at full width (the JAX package's train.py): the
+# CLI's default backbone (ResNet-50, os16), 19 classes, crop 513, batch 4
+# (the automatic batch on one card), SGD poly at lr 0.01, over PASSIVE_TRAIN
+# train and PASSIVE_VAL val records
+PASSIVE_CROP = 513
+PASSIVE_ARGV = ["--dataset", "cityscapes", "--base-size", str(PASSIVE_CROP),
+                "--crop-size", str(PASSIVE_CROP), "--batch-size", "4", "--lr", "0.01",
+                "--use-lr-scheduler", "--eval-interval", "1", "--epochs", "2",
+                "--workers", "0"]
+PASSIVE_TRAIN, PASSIVE_VAL = 12, 4
+# the zoo's train steps at full width: name -> (flags, crop). ENet halves
+# its input three times and unpools it back, and FastSCNN adds a 1/8 map to
+# a 4x-upsampled 1/32 one, so both need a crop that 8 (FastSCNN: 32)
+# divides: 512, as the JAX package runs ENet
+ZOO = {"deeplab_resnet50": (["--backbone", "resnet"], 513),
+       "enet": (["--architecture", "enet", "--optimizer", "Adam", "--lr", "5e-4"], 512),
+       "fastscnn": (["--architecture", "fastscnn"], 512)}
+# the ENet-headed accuracy predictor's dual step at Pascal's 512 letterbox
+ENET_DUAL_BATCH = 5
+
+
+def timed_steps(torch, step, batch, *args):
+    """TRAIN_WARMUP, then TRAIN_STEPS timed calls of ``step(batch, i,
+    *args)`` on one device-resident batch: (device ms per step, peak bytes
+    over the timed calls, every call's result)."""
+    outs = [step(batch, i, *args) for i in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        outs.append(step(batch, i, *args))
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end) / TRAIN_STEPS,
+            torch.cuda.max_memory_allocated(), outs)
+
+
+def write_passive_dataset(root: Path, seed: int):
+    """train.py's layout: ``root/cityscapes/{train,val}`` with PASSIVE_TRAIN
+    and PASSIVE_VAL Cityscapes-sized records."""
+    store, paths = write_store(root / "cityscapes" / "train", seed + 10,
+                               n=PASSIVE_TRAIN)
+    write_store(root / "cityscapes" / "val", seed + 11, n=PASSIVE_VAL, split="val")
+    return store, paths
+
+
+@contextlib.contextmanager
+def pil_resizes():
+    """The transforms' native resizes replaced by their plain version (the
+    PIL call) for the length of a ``with`` block: the host geometry as it
+    ran before the native resampler, on the same records."""
+    from deep_active_semantic_segmentation_torch.data import transforms as tr
+
+    saved = tr.imresize, tr.imresize_crop
+    tr.imresize = tr.imresize_plain
+    tr.imresize_crop = (lambda a, oh, ow, x1, y1, crop, interp="bilinear":
+                        tr.imresize_plain(a, (oh, ow), interp)[y1:y1 + crop, x1:x1 + crop])
+    try:
+        yield
+    finally:
+        tr.imresize, tr.imresize_crop = saved
+
+
+def native_phase(torch, seed: int, store, paths):
+    """The native resampler on the Cityscapes-sized records: its bilinear
+    and nearest resizes, and FixScaleCrop's crop-window form, byte-equal
+    to PIL's; the host geometry of one train batch (crop 513, batch 4)
+    natively on one thread and on every core, and through PIL (one
+    thread); then, in turns (PIL, native, native, PIL), the passive train
+    Loader's epoch (flips and blurs included) on the host and the
+    canonical DeepLab-MobileNetV2 dropout query over the 20 records."""
+    from deep_active_semantic_segmentation_torch.data import native, pools
+    from deep_active_semantic_segmentation_torch.data import transforms as tr
+    from deep_active_semantic_segmentation_torch.data.loader import Loader
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+
+    records = [np.asarray(store.get(p)) for p in paths[:4]]
+    for rec in records[:2]:
+        img, lab = rec[..., :3], rec[..., 3]
+        for size in ((513, 1026), (256, 512), (1100, 2200)):
+            check(np.array_equal(tr.imresize(img, size), tr.imresize_plain(img, size)),
+                  f"bilinear resize to {size} equals PIL")
+            check(np.array_equal(tr.imresize(lab, size, "nearest"),
+                                 tr.imresize_plain(lab, size, "nearest")),
+                  f"nearest resize to {size} equals PIL")
+        out = tr.FixScaleCrop(513)({"image": img, "label": lab})
+        x1, y1 = tr._center_crop_origin(513, 1026, 513)
+        check(np.array_equal(out["image"], tr.imresize_plain(img, (513, 1026))
+                             [y1:y1 + 513, x1:x1 + 513]),
+              "FixScaleCrop's window equals PIL's resize then crop")
+        check(np.array_equal(out["label"], tr.imresize_plain(lab, (513, 1026), "nearest")
+                             [y1:y1 + 513, x1:x1 + 513]),
+              "FixScaleCrop's label window equals PIL's")
+
+    def geometry(resize_crop):
+        t0 = time.perf_counter()
+        for rec in records:
+            resize_crop(rec[..., :3], "bilinear")
+            resize_crop(rec[..., 3], "nearest")
+        return time.perf_counter() - t0
+
+    x1, y1 = tr._center_crop_origin(513, 1026, 513)
+
+    def plain(a, interp):
+        return tr.imresize_plain(a, (513, 1026), interp)[y1:y1 + 513, x1:x1 + 513]
+
+    def fused(a, interp):
+        return tr.imresize_crop(a, 513, 1026, x1, y1, 513, interp)
+
+    saved = native.get_num_threads()
+    try:
+        native.set_num_threads(1)
+        geometry(fused)
+        times = {"native_one_thread_s": min(geometry(fused) for _ in range(3)),
+                 "pil_one_thread_s": min(geometry(plain) for _ in range(3))}
+        native.set_num_threads(None)
+        geometry(fused)
+        times["native_all_threads_s"] = min(geometry(fused) for _ in range(3))
+    finally:
+        native.set_num_threads(saved)
+    print(f"host geometry of one batch of 4 at crop 513 (1024x2048 records, image "
+          f"and label): native {times['native_one_thread_s']:.4f} s on one thread, "
+          f"PIL {times['pil_one_thread_s']:.4f} s on one thread "
+          f"({times['pil_one_thread_s'] / times['native_one_thread_s']:.2f}x), native "
+          f"{times['native_all_threads_s']:.4f} s on every core", flush=True)
+    check(times["native_one_thread_s"] < times["pil_one_thread_s"],
+          "the native geometry is faster than PIL's on one thread")
+
+    pool = pools.PassivePool(pools.CITYSCAPES, store, 513, 513, "train",
+                             rng=random.Random(seed))
+    loader = Loader(pool, 4, shuffle=True, seed=seed, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    bundle = ModelBundle(build_model("deeplab", NUM_CLASSES, mc_dropout=True,
+                                     device=DEVICE, generator=gen), torch.device(DEVICE))
+    sel = get_active_selection_class("variance", NUM_CLASSES, store, 513, 5,
+                                     device=DEVICE)
+    sum(b["nvalid"] for b in loader)   # warms the page cache
+    sel.get_vote_entropy_for_images(bundle, paths[:5], 1, seed=1)
+    turns = {"native": {"loader": [], "query": [], "top": []},
+             "pil": {"loader": [], "query": [], "top": []}}
+    for how in ("pil", "native", "native", "pil"):
+        with pil_resizes() if how == "pil" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            n = sum(b["nvalid"] for b in loader)
+            turns[how]["loader"].append(n / (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            top = sel.get_vote_entropy_for_images(bundle, paths, 5, seed=0)
+            torch.cuda.synchronize()
+            turns[how]["query"].append(len(paths) / (time.perf_counter() - t0))
+            turns[how]["top"].append(top)
+    check(all(t == turns["native"]["top"][0] for how in turns for t in turns[how]["top"]),
+          "the query picks the same with either resampler")
+    t0 = time.perf_counter()
+    n = sum(b["nvalid"] for b in loader.device_batches())
+    torch.cuda.synchronize()
+    onto_card = n / (time.perf_counter() - t0)
+    result = {**times, "loader_onto_card_images_per_s": onto_card}
+    for how in turns:
+        result[f"loader_epoch_images_per_s_{how}"] = turns[how]["loader"]
+        result[f"mobilenet_query_images_per_s_{how}"] = turns[how]["query"]
+    print(f"passive train Loader epoch at crop 513, batch 4 ({len(pool)} records, "
+          f"flips and blurs), images/s on the host: native "
+          f"{turns['native']['loader']}, PIL {turns['pil']['loader']}; onto the "
+          f"card (native) {onto_card:.2f}. DeepLab-MobileNetV2 dropout query "
+          f"(20 images, batch 5), images/s: native {turns['native']['query']}, "
+          f"PIL {turns['pil']['query']}", flush=True)
+    return result
+
+
+def zoo_train_phase(torch, seed: int, root: Path, name: str):
+    """ZOO[name]'s train step at full width on a device-resident batch from
+    the passive Loader, in bf16 then f32 (TF32 on): ms per step, peak
+    memory, every loss finite and falling over the steps on that one
+    batch; the eval step's confusion against a host bincount."""
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import make_schedule
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_eval_step, make_train_step)
+
+    flags, crop = ZOO[name]
+    cfg = parse_cli(PASSIVE_ARGV + flags + ["--crop-size", str(crop), "--base-size",
+                                            str(crop), "--seed", str(seed),
+                                            "--epochs", "200"]).finalize()
+    _, train_loader, _, _, nclass = make_dataloader(
+        cfg.dataset, cfg.base_size, cfg.crop_size, cfg.batch_size,
+        dataset_root=str(root), seed=seed, rng=random.Random(seed), device=DEVICE)
+    t0 = time.perf_counter()
+    host_batch = next(iter(train_loader))
+    host_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(host_batch[k]).to(DEVICE) for k in ("image", "label")}
+    B = cfg.batch_size
+    out = {"arch": cfg.architecture, "backbone": cfg.backbone, "crop": crop,
+           "batch": B, "optimizer": cfg.optimizer, "lr": cfg.lr,
+           "host_geometry_s_per_batch": host_s}
+    for dtype in ("bfloat16", "float32"):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        model = build_model(cfg.architecture, nclass, backbone=cfg.backbone,
+                            device=DEVICE, generator=gen).train()
+        opt = build_optimizer(cfg.optimizer, param_groups(model, cfg.architecture), cfg)
+        step = make_train_step(model, opt, build_loss("ce"),
+                               make_schedule("poly", cfg.lr, cfg.epochs,
+                                             len(train_loader)),
+                               compute_dtype=dtype, generator=gen)
+        step_ms, peak, outs = timed_steps(torch, step, batch)
+        losses = torch.stack([o["loss"] for o in outs]).tolist()
+        print(f"{name} train step {dtype}: {step_ms:.3f} ms per step of {B} at "
+              f"{crop}² ({B / step_ms * 1e3:.2f} images/s on a device-resident "
+              f"batch), peak memory {peak / 2**30:.3f} GiB, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}", flush=True)
+        check(bool(np.isfinite(losses).all()), f"{name} {dtype} losses finite")
+        check(losses[-1] < losses[0], f"{name} {dtype} loss falls over "
+                                      f"{len(losses)} steps on one batch")
+        out[dtype] = {"step_ms": step_ms, "images_per_s": B / step_ms * 1e3,
+                      "peak_bytes": peak, "losses": losses}
+    ev = make_eval_step(model, nclass, build_loss("ce", batch_average=False))(batch, B)
+    pred, lab = ev["pred"].cpu().numpy(), host_batch["label"].astype(np.int64)
+    valid = lab < nclass
+    host = np.bincount(nclass * lab[valid] + pred[valid],
+                       minlength=nclass * nclass).reshape(nclass, nclass)
+    check(np.array_equal(ev["confusion"].cpu().numpy(), host),
+          f"{name} eval confusion equals a host bincount")
+    return out
+
+
+def train_main_phase(torch, seed: int, root: Path):
+    """``train_torch.main`` with train.py's flags (the default ResNet-50
+    DeepLab) over the passive dataset, twice, then a resume of
+    experiment_0 to 3 epochs: experiment_0..2, best_pred.txt (the best
+    mIoU, then its epoch) per run, model_best.ckpt holding the best of the
+    runs (each run that beat every earlier run's best promoted its
+    checkpoint), the resume starting at its checkpoint's epoch with its
+    best mIoU, and one train grid per epoch."""
+    import contextlib
+    import io
+
+    import train_torch
+    from deep_active_semantic_segmentation_torch.utils.summaries import (
+        TensorboardSummary)
+
+    runs = root / "passive_runs"
+    exp = runs / "cityscapes" / "passive"
+    grids = []
+    original = TensorboardSummary.visualize_image
+
+    def counting(self, writer, dataset, image, target, output, step, prefix="val"):
+        grids.append((prefix, step, tuple(image.shape)))
+        return original(self, writer, dataset, image, target, output, step, prefix)
+
+    argv = PASSIVE_ARGV + ["--seed", str(seed), "--checkname", "passive"]
+    resume = exp / "experiment_0" / "checkpoint.ckpt"
+    runs_out = []
+    TensorboardSummary.visualize_image = counting
+    try:
+        for i, extra in enumerate(([], [], ["--epochs", "3", "--resume-checkpoint",
+                                            str(resume)])):
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                trainer = train_torch.main(argv + extra, dataset_root=str(root),
+                                           runs_root=str(runs), device=DEVICE)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            start = int(text.getvalue().split("Starting Epoch:")[1].split()[0])
+            runs_out.append({"wall_s": wall_s, "start_epoch": start,
+                             "best_pred": trainer.best_pred, "steps": trainer.step})
+            print(f"train_torch.main run {i}: {wall_s:.3f} s, start epoch {start}, "
+                  f"best mIoU {trainer.best_pred:.6f}, {trainer.step} steps", flush=True)
+    finally:
+        TensorboardSummary.visualize_image = original
+    dirs = sorted(d.name for d in exp.iterdir() if d.is_dir())
+    check(dirs == ["experiment_0", "experiment_1", "experiment_2"],
+          f"three experiment directories: {dirs}")
+    payload = torch.load(str(resume), map_location="cpu", weights_only=True)
+    check([r["start_epoch"] for r in runs_out] == [0, 0, payload["epoch"]] and
+          payload["epoch"] == 2, "the resume starts at its checkpoint's epoch")
+    check(runs_out[2]["best_pred"] >= runs_out[0]["best_pred"],
+          "the resume carries its checkpoint's best mIoU on")
+    bests = []
+    for d, r in zip(dirs, runs_out):
+        path = exp / d / "best_pred.txt"
+        if not path.exists():
+            check(d == "experiment_2" and r["best_pred"] == runs_out[0]["best_pred"],
+                  f"{d} wrote best_pred.txt")
+            continue
+        value, epoch = path.read_text().split("\n")
+        check(float(value) == r["best_pred"] and 1 <= int(epoch) <= 3,
+              f"{d}/best_pred.txt holds the run's best and its epoch")
+        bests.append(float(value))
+    best = torch.load(str(exp / "model_best.ckpt"), map_location="cpu",
+                      weights_only=True)
+    check(best["best_pred"] == max(bests), "model_best.ckpt holds the best run's "
+                                           "checkpoint")
+    check([g[:2] for g in grids] == [("train", 0), ("train", 1)] * 2 + [("train", 2)]
+          and all(g[2] == (4, PASSIVE_CROP, PASSIVE_CROP, 3) for g in grids),
+          f"one train grid per epoch: {grids}")
+    return {"runs": runs_out, "experiments": dirs, "model_best_pred": best["best_pred"],
+            "grids": len(grids)}
+
+
+def transplant_phase(torch, seed: int, root: Path):
+    """A ResNet-50 ``state_dict`` (bare keys, with the ImageNet ``fc``) and
+    a MobileNetV2 one (under ``state_dict``, with ``features.18`` and the
+    classifier), seeded, written to the run's directory: after a
+    Trainer's ``initialize()`` on the card, its backbone holds the file's
+    tensors and the rest of the model equals a Trainer's without the file;
+    the next ``initialize()`` (the next round's fresh model) transplants
+    again."""
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data.loader import Loader
+    from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
+    from deep_active_semantic_segmentation_torch.models.backbone import build_backbone
+
+    gen = torch.Generator().manual_seed(seed)
+    files, out = {}, {}
+    for backbone, name in (("resnet", "resnet50.pth"),
+                           ("mobilenet", "mobilenet_v2.pth.tar")):
+        sd = {k: (torch.rand(v.shape, generator=gen) + 0.5 if k.endswith("running_var")
+                  else torch.randn(v.shape, generator=gen)
+                  if v.is_floating_point() else v)
+              for k, v in build_backbone(backbone, 16).state_dict().items()
+              if not k.startswith(("low_level_features.", "high_level_features."))}
+        if backbone == "resnet":
+            sd.update({"fc.weight": torch.randn(1000, 2048, generator=gen),
+                       "fc.bias": torch.zeros(1000)})
+            torch.save(sd, root / name)
+        else:
+            sd.update({"features.18.0.weight": torch.randn(1280, 320, 1, 1,
+                                                           generator=gen),
+                       "classifier.1.weight": torch.randn(1000, 1280, generator=gen)})
+            torch.save({"state_dict": sd}, root / name)
+        files[backbone] = sd
+        argv = PASSIVE_ARGV + ["--backbone", backbone, "--seed", str(seed),
+                               "--pretrained-weights", str(root / name)]
+        loaders = (Loader([], 4, device=DEVICE), Loader([], 4, device=DEVICE))
+        trainers = [Trainer(parse_cli(a).finalize(), *loaders, NUM_CLASSES, device=DEVICE)
+                    for a in (argv, argv + ["--no-pretrained"])]
+        times = []
+        for t in trainers:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.initialize()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        want = {k: v for k, v in sd.items()
+                if not k.startswith(("fc.", "features.18.", "classifier."))}
+
+        def holds_file(model):
+            got = model.backbone.state_dict()
+            return all(torch.equal(got[k].cpu(), v) for k, v in want.items()
+                       if not k.endswith("num_batches_tracked"))
+
+        with_file, without = (t.model for t in trainers)
+        check(holds_file(with_file), f"{backbone}: the backbone holds the file's tensors")
+        other = without.state_dict()
+        check(all(torch.equal(v, other[k]) for k, v in with_file.state_dict().items()
+                  if not k.startswith("backbone.")),
+              f"{backbone}: the head is the random init, untouched")
+        with torch.no_grad():
+            for p in with_file.backbone.parameters():
+                p.add_(1.0)
+        t0 = time.perf_counter()
+        trainers[0].initialize()
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t0
+        check(holds_file(trainers[0].model),
+              f"{backbone}: the next initialize() transplants again")
+        out[backbone] = {"initialize_s": times[0], "initialize_without_s": times[1],
+                         "initialize_again_s": again_s, "tensors": len(want)}
+        print(f"transplant {backbone}: {len(want)} tensors; initialize() "
+              f"{times[0]:.3f} s with the file (read once), {times[1]:.3f} s "
+              f"without, {again_s:.3f} s the next round", flush=True)
+    return out
+
+
+def enet_dual_phase(torch, seed: int, root: Path):
+    """The ENet-headed accuracy predictor's dual step at Pascal's 512
+    letterbox (21 classes, batch 5) on a device-resident batch, bf16 then
+    f32: ms per step, peak memory, losses finite and falling."""
+    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import make_schedule
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_dual_train_step)
+
+    _, train_loader, _, _, nclass = make_dataloader(
+        "active_pascal_image", ACC_BASE, -1, ENET_DUAL_BATCH, init_set="set_all.txt",
+        dataset_root=str(root), seed=seed, rng=random.Random(seed), device=DEVICE)
+    host_batch = next(iter(train_loader))
+    batch = {k: torch.from_numpy(host_batch[k]).to(DEVICE) for k in ("image", "label")}
+    out = {"batch": ENET_DUAL_BATCH, "side": ACC_BASE}
+    for dtype in ("bfloat16", "float32"):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        model = build_model("accuracy_predictor", nclass, device=DEVICE,
+                            generator=gen, enet_head=True).train()
+        check(model.deeplab.model_name == "enet", "the segmentation head is an ENet")
+        opt = build_optimizer("SGD", param_groups(model, "accuracy_predictor"))
+        step = make_dual_train_step(
+            model, opt, build_loss("ce"),
+            build_loss("ce", class_weights=torch.tensor([0.75, 0.25], device=DEVICE)),
+            make_schedule("step", 0.007, 150, len(train_loader)),
+            compute_dtype=dtype, generator=gen)
+        step_ms, peak, outs = timed_steps(torch, step, batch, *ACC_WEIGHTS)
+        losses = {k: torch.stack([o[k] for o in outs]).tolist()
+                  for k in ("loss", "loss_dl", "loss_un")}
+        print(f"ENet-headed dual step {dtype}: {step_ms:.3f} ms per step of "
+              f"{ENET_DUAL_BATCH} at {ACC_BASE}² "
+              f"({ENET_DUAL_BATCH / step_ms * 1e3:.2f} images/s), peak memory "
+              f"{peak / 2**30:.3f} GiB, loss {losses['loss'][0]:.4f} -> "
+              f"{losses['loss'][-1]:.4f}", flush=True)
+        check(all(np.isfinite(v).all() for v in losses.values()),
+              f"ENet-headed {dtype} dual losses finite")
+        check(losses["loss"][-1] < losses["loss"][0],
+              f"ENet-headed {dtype} dual loss falls on one batch")
+        out[dtype] = {"step_ms": step_ms, "peak_bytes": peak,
+                      "images_per_s": ENET_DUAL_BATCH / step_ms * 1e3,
+                      "losses": losses}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2384,6 +2847,15 @@ def main(argv=None) -> int:
     print(f"kernel build: {build_s:.2f} s", flush=True)
     for name, text in reports.items():
         print(f"nvcc {name}:\n{text.strip()}", flush=True)
+    from deep_active_semantic_segmentation_torch.data import native
+
+    found = native.library_path().exists()
+    t0 = time.perf_counter()
+    native.get_lib()
+    native_build_s = time.perf_counter() - t0
+    print(f"native resampler {'load (already built)' if found else 'build (g++) and load'}"
+          f": {native_build_s:.2f} s ({native.library_path().name}, "
+          f"{native.get_lib().default_threads} OpenMP threads by default)", flush=True)
     sass = {name: sass_tensor_ops(cuda_build.library_path(name))
             for name in cuda_build.SOURCES}
     print("tensor-core instructions in the SASS:", json.dumps(sass), flush=True)
@@ -2462,6 +2934,41 @@ def main(argv=None) -> int:
         accuracy["queries"] = accuracy_query_phase(
             torch, args.seed, tmp, accuracy["driver"]["active_pascal_image"]["checkpoint"])
         phase_s["accuracy_queries"] = time.perf_counter() - t0
+        # slice 8: train.py's path and the rest of the zoo; no phase may
+        # launch B1 or B2 (training computes full logits) but the native
+        # phase's dropout queries (a warm-up batch, then 4 queries of 4
+        # batches, 20 MC steps each)
+        from deep_active_semantic_segmentation_torch import constants
+
+        expected = {"native": {"upsample4_argmax": constants.MC_STEPS * (1 + 4 * 4),
+                               "tconv2x_argmax_parity_major": 0}}
+        zoo = {}
+        t0 = time.perf_counter()
+        passive_root = tmp / "passive"
+        write_passive_dataset(passive_root, args.seed)
+        phase_s["passive_store_write"] = time.perf_counter() - t0
+        slice8 = [("native", lambda: native_phase(torch, args.seed, store, paths))]
+        slice8 += [(f"train_{name}", lambda name=name: zoo_train_phase(
+            torch, args.seed, passive_root, name)) for name in ZOO]
+        slice8 += [(f"card_vs_cpu_{arch}_{bb}", lambda arch=arch, bb=bb, side=side:
+                    card_vs_cpu_phase(torch, args.seed, arch, bb, side, ("float32",)))
+                   for arch, bb, side in (("deeplab", "resnet", 65),
+                                          ("enet", "mobilenet", 64),
+                                          ("fastscnn", "mobilenet", 64))]
+        slice8 += [("train_torch_main", lambda: train_main_phase(
+                        torch, args.seed, passive_root)),
+                   ("transplant", lambda: transplant_phase(torch, args.seed, tmp)),
+                   ("enet_dual", lambda: enet_dual_phase(torch, args.seed, tmp))]
+        for name, phase in slice8:
+            t0 = time.perf_counter()
+            reset_counts()
+            zoo[name] = phase()
+            zoo[name]["counts"] = read_counts()
+            phase_s[name] = time.perf_counter() - t0
+            want = expected.get(name, {k: 0 for k in zoo[name]["counts"]})
+            check(zoo[name]["counts"] == want,
+                  f"launches in the {name} phase: {zoo[name]['counts']}, "
+                  f"expected {want}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -2495,16 +3002,24 @@ def main(argv=None) -> int:
                for q, r in accuracy["queries"].items() if "counts" in r}}
         check(not any(row["accuracy_predictor_launches"].values()),
               f"{row['name']}: no launch in the accuracy-predictor phases")
+        row["resnet50_query_launches"] = (
+            paths_result["deeplab_resnet50"]["counts"][row["name"]])
+        row["zoo_training_launches"] = {name: r["counts"][row["name"]]
+                                        for name, r in zoo.items()}
+    check(paths_result["deeplab_resnet50"]["launches"] == 80,
+          "B1 launched 80 times in the ResNet-50 variance query")
 
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "build_s": build_s, "store_write_s": store_s,
+            {"card": card, "build_s": build_s, "native_build_s": native_build_s,
+             "store_write_s": store_s,
              "sass_tensor_ops": sass, "phase_s": phase_s,
              "kernels": rows, "main_paths": paths_result,
              "training": training, "al_round": al_round, "region": region,
              "ceal": ceal, "noise": noise, "representative": representative,
-             "greedy": greedy, "oracle": oracle, "accuracy": accuracy},
+             "greedy": greedy, "oracle": oracle, "accuracy": accuracy,
+             "zoo": zoo},
             indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}

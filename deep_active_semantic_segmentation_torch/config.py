@@ -58,7 +58,7 @@ class ExperimentConfig:
     out_stride: int = 16
     sync_bn: Optional[bool] = None         # None -> auto by device count
     freeze_bn: bool = False
-    # ImageNet-pretrained backbone from a local file (ROADMAP A14)
+    # ImageNet-pretrained backbone from a local file (models/pretrained.py)
     pretrained: bool = True
     pretrained_weights: Optional[str] = None
     # data
@@ -176,8 +176,9 @@ def add_common_flags(parser: argparse.ArgumentParser,
       help="no effect on one card")
     a("--freeze-bn", type=bool, default=False)
     a("--pretrained-weights", type=str, default=None,
-      help="local backbone checkpoint transplanted at every fresh init "
-           "(not ported yet: ROADMAP A14)")
+      help="local backbone checkpoint (.pth/.pth.tar/.npz) transplanted "
+           "into every fresh DeepLab backbone; stands in for the "
+           "reference's model-zoo download")
     a("--no-pretrained", dest="pretrained", action="store_false", default=True,
       help="skip the pretrained-backbone transplant even when "
            "--pretrained-weights is set")

@@ -3,10 +3,9 @@ itself the reference dataloaders/__init__.py:7-96): the same dataset keys
 and return tuple ``(train_set, train_loader, val_loader, None,
 num_classes)``.
 
-Ported: the image- and region-level AL datasets
-(``active_{cityscapes,pascal}_{image,region}``) on a ``DirectoryStore``.
-The passive ones come with ``train.py`` (ROADMAP A14), LMDB stores are
-A16.
+Ported: the passive datasets (``cityscapes``, ``pascal``) and the image-
+and region-level AL datasets (``active_{cityscapes,pascal}_{image,region}``)
+on a ``DirectoryStore``; LMDB stores are ROADMAP A16b.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from typing import Optional
 from deep_active_semantic_segmentation_torch import constants, resolve_device
 from deep_active_semantic_segmentation_torch.data.loader import Loader
 from deep_active_semantic_segmentation_torch.data.pools import (
-    CITYSCAPES, PASCAL, ActiveImagePool, ActiveRegionPool)
+    CITYSCAPES, PASCAL, ActiveImagePool, ActiveRegionPool, PassivePool)
 from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
 
 
@@ -28,7 +27,7 @@ def _resolve_store(dataset_path: str, split: str):
     if os.path.exists(os.path.join(directory, DirectoryStore.INDEX)):
         return DirectoryStore(directory)
     if os.path.exists(os.path.join(dataset_path, split + ".db")):
-        raise NotImplementedError("LMDB stores are not ported yet (ROADMAP A16)")
+        raise NotImplementedError("LMDB stores are not ported yet (ROADMAP A16b)")
     raise FileNotFoundError(f"no store for split '{split}' under {dataset_path}")
 
 
@@ -45,23 +44,26 @@ def make_dataloader(dataset: str, base_size: int, crop_size: int,
     the train loader runs one producer thread, so the draws keep their
     order."""
     device = resolve_device(device)
-    if dataset.endswith("_image"):
-        pool = ActiveImagePool
-    elif dataset.endswith("_region"):
-        pool = ActiveRegionPool
-    else:
-        raise NotImplementedError(f"dataset '{dataset}': passive datasets come "
-                                  "with train.py (ROADMAP A14)")
+    if not (dataset in ("cityscapes", "pascal")
+            or dataset.endswith(("_image", "_region"))):
+        raise NotImplementedError(dataset)
     root = dataset_root or constants.DATASET_ROOT
     family = PASCAL if "pascal" in dataset else CITYSCAPES
     dataset_path = os.path.join(root, family.name)
     seed_dir = os.path.join(dataset_path, "seed_sets")
+    stores = {split: _resolve_store(dataset_path, split)
+              for split in ("train", "val")}
 
-    train_set = pool(family, _resolve_store(dataset_path, "train"), base_size,
-                     crop_size, "train", init_set, seed_dir, overfit,
-                     memory_hog, rng)
-    val_set = pool(family, _resolve_store(dataset_path, "val"), base_size,
-                   crop_size, "val", None, seed_dir, overfit, memory_hog, rng)
+    if dataset in ("cityscapes", "pascal"):
+        train_set, val_set = (
+            PassivePool(family, stores[split], base_size, crop_size, split,
+                        overfit, memory_hog, rng) for split in ("train", "val"))
+    else:
+        pool = ActiveImagePool if dataset.endswith("_image") else ActiveRegionPool
+        train_set = pool(family, stores["train"], base_size, crop_size,
+                         "train", init_set, seed_dir, overfit, memory_hog, rng)
+        val_set = pool(family, stores["val"], base_size, crop_size, "val",
+                       None, seed_dir, overfit, memory_hog, rng)
     train_loader = Loader(train_set, batch_size, shuffle=True, seed=seed,
                           device=device)
     val_loader = Loader(val_set, batch_size, shuffle=False, device=device)

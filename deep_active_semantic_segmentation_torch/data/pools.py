@@ -1,7 +1,9 @@
-"""Active-learning pool bookkeeping, image and region level (own copy of
-the JAX package's data/pools.py:33-302).
+"""Passive datasets and active-learning pool bookkeeping, image and
+region level (own copy of the JAX package's data/pools.py:33-302).
 
 Parity targets:
+* passive datasets — reference dataloaders/dataset/{cityscapes,pascal}.py
+  (every record of the split, pad-to-batch / reset);
 * image-level AL pool — reference active_cityscapes.py:19-95 /
   active_pascal.py (seed-set load, current vs remaining paths, weak labels
   served past the labeled range, pixel accounting);
@@ -13,8 +15,7 @@ Parity targets:
 Dataset-family differences are captured in ``DatasetSpec``. The uint8
 wire is always on: the host does geometry only and the steps normalize on
 the device. The train transforms' flips and blurs draw from the
-``random.Random`` the pool is given. The passive pool comes with
-``train.py`` (ROADMAP A14).
+``random.Random`` the pool is given.
 """
 
 from __future__ import annotations
@@ -123,6 +124,38 @@ class BasePool:
         s = self._pixel_side
         return ((self.labeled_pixel_count + active_batch_size * s * s)
                 / (len(self.image_paths) * s * s))
+
+
+class PassivePool(BasePool):
+    """Full-dataset pool (reference cityscapes.py / pascal.py; the JAX
+    package's pools.py:109-134). Its labeled set is every record, so the
+    shared pad-to-batch bookkeeping runs on ``image_paths``."""
+
+    def __init__(self, spec, store, base_size, crop_size, split,
+                 overfit: bool = False, memory_hog: bool = False,
+                 rng: Optional[random.Random] = None):
+        super().__init__(spec, store, base_size, crop_size, split, overfit,
+                         memory_hog, rng)
+        if self.memory_hog:
+            self.store.preload(self.image_paths)
+        self._original_size = len(self.image_paths)
+
+    def __len__(self):
+        return len(self.image_paths)
+
+    def get_item(self, index: int) -> Dict[str, np.ndarray]:
+        rec = self.load_record(self.image_paths[index])
+        return self.transform({"image": rec[:, :, 0:3], "label": rec[:, :, 3]})
+
+    def set_paths(self, pathlist):
+        self.image_paths = list(pathlist)
+
+    def make_dataset_multiple_of_batchsize(self, batch_size: int):
+        self._original_size = len(self.image_paths)
+        self.image_paths = self._pad_to_multiple(self.image_paths, batch_size)
+
+    def reset_dataset(self):
+        self.image_paths = self.image_paths[: self._original_size]
 
 
 class ActiveImagePool(BasePool):

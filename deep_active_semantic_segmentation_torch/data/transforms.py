@@ -7,10 +7,11 @@ train transforms draw from an explicit ``random.Random`` that the pool
 passes in, the same draws in the same order as the JAX package's calls
 of the module-level ``random``: one seed gives one stream. Resizing
 reproduces the deprecated ``scipy.misc.imresize`` the reference depends
-on: uint8 arrays routed through PIL with the requested resample mode, the
-code path old scipy used, so results are bit-identical for uint8 inputs.
-The JAX package's native C++ resampler (bit-identical to PIL) is a later
-item of the port (ROADMAP); here PIL does every resize.
+on, which routed uint8 arrays through PIL: every bilinear and nearest
+resize runs on the native resampler (``data/native.py``, bit-identical to
+PIL), and a center crop after a resize computes only the crop's window
+(``FixScaleCrop``). ``imresize_plain`` is the PIL call itself, the plain
+version the tests hold the native one against.
 """
 
 from __future__ import annotations
@@ -22,24 +23,43 @@ import numpy as np
 from PIL import Image
 from scipy.ndimage import gaussian_filter
 
+from deep_active_semantic_segmentation_torch.data import native
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def imresize(arr: np.ndarray, size: Tuple[int, int], interp: str = "bilinear") -> np.ndarray:
-    """scipy.misc.imresize replica for uint8 inputs: PIL resize.
-
-    size is (height, width), matching the scipy/reference convention.
-    """
+def _as_uint8(arr) -> np.ndarray:
     arr = np.asarray(arr)
     if arr.dtype != np.uint8:
         # old scipy bytescaled non-uint8 input; the reference only ever
         # resizes uint8 data, so clip-cast is sufficient here.
         arr = np.clip(arr, 0, 255).astype(np.uint8)
+    return arr
+
+
+def imresize(arr: np.ndarray, size: Tuple[int, int], interp: str = "bilinear") -> np.ndarray:
+    """scipy.misc.imresize replica for uint8 inputs on the native
+    resampler ('bilinear' or 'nearest'). size is (height, width), matching
+    the scipy/reference convention."""
+    return native.resize_u8(_as_uint8(arr), int(size[0]), int(size[1]), interp)
+
+
+def imresize_plain(arr: np.ndarray, size: Tuple[int, int],
+                   interp: str = "bilinear") -> np.ndarray:
+    """The plain version of ``imresize``: the PIL resize old scipy ran."""
     oh, ow = int(size[0]), int(size[1])
-    resample = {"nearest": Image.NEAREST, "bilinear": Image.BILINEAR,
-                "bicubic": Image.BICUBIC, "lanczos": Image.LANCZOS}[interp]
-    return np.array(Image.fromarray(arr).resize((ow, oh), resample))
+    resample = {"nearest": Image.NEAREST, "bilinear": Image.BILINEAR}[interp]
+    return np.array(Image.fromarray(_as_uint8(arr)).resize((ow, oh), resample))
+
+
+def imresize_crop(arr: np.ndarray, oh: int, ow: int, x1: int, y1: int,
+                  crop: int, interp: str = "bilinear") -> np.ndarray:
+    """``imresize(arr, (oh, ow), interp)[y1:y1+crop, x1:x1+crop]``, with
+    only the window's pixels computed (the JAX package's
+    transforms.py:55-69)."""
+    return native.resize_u8_window(_as_uint8(arr), oh, ow, x1, y1, crop,
+                                   crop, interp)
 
 
 def _short_side_dims(w: int, h: int, target: int) -> Tuple[int, int]:
@@ -122,9 +142,8 @@ class FixScaleCrop:
         oh, ow = _short_side_dims(w, h, self.crop_size)
         x1, y1 = _center_crop_origin(oh, ow, self.crop_size)
         cs = self.crop_size
-        img = imresize(img, (oh, ow))[y1:y1 + cs, x1:x1 + cs]
-        mask = imresize(mask, (oh, ow), "nearest")[y1:y1 + cs, x1:x1 + cs]
-        return {"image": img, "label": mask}
+        return {"image": imresize_crop(img, oh, ow, x1, y1, cs),
+                "label": imresize_crop(mask, oh, ow, x1, y1, cs, "nearest")}
 
 
 class Scale:
@@ -153,8 +172,7 @@ class FixScaleCropImageOnly:
         h, w = img.shape[0], img.shape[1]
         oh, ow = _short_side_dims(w, h, self.crop_size)
         x1, y1 = _center_crop_origin(oh, ow, self.crop_size)
-        cs = self.crop_size
-        return imresize(img, (oh, ow))[y1:y1 + cs, x1:x1 + cs]
+        return imresize_crop(img, oh, ow, x1, y1, self.crop_size)
 
 
 def _letterbox_dims(w: int, h: int, base_size: int) -> Tuple[int, int]:

@@ -49,8 +49,14 @@ def _check_mode(mode: str, dataset: str) -> None:
     asserts only at selection time, after a whole training round), then
     ``random``, ``accuracy_eval`` and ``accuracy_labels`` on region
     datasets, which the JAX loop lists as region-capable but fails at its
-    first selection (ROADMAP C)."""
+    first selection (ROADMAP C); and the passive datasets, whose pool has
+    no unlabeled remainder to select from (the JAX loop fails at its first
+    selection there too)."""
     region = dataset.endswith("_region")
+    if not dataset.startswith("active_"):
+        raise ValueError(f"dataset '{dataset}' is passive: the AL loop drives "
+                         "active_*_{image,region}; train_torch.py trains on "
+                         "the passive datasets")
     if mode == "coreset" and not dataset.endswith("_image"):
         raise AssertionError("only images supported for coreset approach")
     if region and mode not in _REGION_CAPABLE:

@@ -23,11 +23,22 @@ weights (w_dl, w_un), the error head's classes are weighted [w_wrong,
 error head's 2-class confusion (``val/UNetAcc``) and returns the 5-tuple
 panel (image, seg target, seg prediction, error target, error
 prediction); every train epoch writes that panel for one train batch.
-The best checkpoint is chosen by the segmentation mIoU.
+The best checkpoint is chosen by the segmentation mIoU. With
+``args.architecture == 'enet'`` the predictor's segmentation head is an
+ENet (the JAX package's trainer.py:93-111).
 
-Not ported yet, each raising and naming its ROADMAP item: ENet training,
-also as the predictor's head (A12), and the pretrained-backbone
-transplant (A14).
+Every architecture trains: DeepLab (MobileNetV2, ResNet-50/101), ENet and
+FastSCNN, with the reference's learning-rate groups
+(``models/factory.param_groups``). ``args.pretrained_weights`` (with
+``args.pretrained``) transplants an ImageNet backbone into every DeepLab
+head's backbone at every ``initialize()``, as the reference's per-round
+re-init does (the JAX package's trainer.py:201-235): the file is read
+once and kept on the host. ENet, FastSCNN and the error heads start from
+the random init, as in the reference.
+
+``train_grids`` (``train_torch.py``) writes one train-batch grid per
+epoch, picked, as in the JAX package, over the VAL loader's length
+(reference train.py:106); a pick past the train loader's end writes none.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from typing import Optional
 import torch
 
 from deep_active_semantic_segmentation_torch import resolve_device
+from deep_active_semantic_segmentation_torch.models import pretrained
 from deep_active_semantic_segmentation_torch.models.factory import (
     build_model, param_groups)
 from deep_active_semantic_segmentation_torch.ops.losses import build_loss
@@ -63,14 +75,8 @@ class Trainer:
     def __init__(self, args, train_loader, val_loader, nclass: int,
                  device=None, dual_head: bool = False,
                  runs_root: Optional[str] = None,
-                 rng: Optional[random.Random] = None):
-        if args.architecture != "deeplab":
-            raise NotImplementedError(
-                f"training '{args.architecture}' is not ported yet (ROADMAP "
-                f"{'A12' if args.architecture == 'enet' else 'A14'})")
-        if args.pretrained and args.pretrained_weights:
-            raise NotImplementedError("the pretrained-backbone transplant is "
-                                      "not ported yet (ROADMAP A14)")
+                 rng: Optional[random.Random] = None,
+                 train_grids: bool = False):
         self.args = args
         self.device = resolve_device(device)
         for loader in (train_loader, val_loader):
@@ -81,6 +87,7 @@ class Trainer:
         self.val_loader = val_loader
         self.nclass = nclass
         self.dual_head = dual_head
+        self.train_grids = train_grids or dual_head
         self.runs_root = runs_root
         self.rng = rng if rng is not None else random.Random(args.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -88,6 +95,7 @@ class Trainer:
         self.writer = None
         self.saver = None
         self._class_weights = None
+        self._pretrained = None   # the backbone file's tensors, read once
 
     # -- saver / summary (active_train.py:34-40) --
     def setup_saver_and_summary(self, num_current_labeled_samples, samples,
@@ -110,7 +118,9 @@ class Trainer:
                                  output_stride=args.out_stride,
                                  mc_dropout=args.mc_dropout,
                                  device=self.device, generator=self.generator,
+                                 enet_head=self.dual_head and args.architecture == "enet",
                                  symmetry=args.symmetry)
+        self._transplant_pretrained_backbone()
         self.optimizer = build_optimizer(
             args.optimizer, param_groups(self.model, arch), args)
 
@@ -155,6 +165,20 @@ class Trainer:
         self.evaluator = Evaluator(self.nclass, self.device)
         self.best_pred = 0.0
 
+    def _transplant_pretrained_backbone(self):
+        """The ImageNet backbone into the fresh DeepLab head's backbone
+        (the segmentation head's, in the two-headed model)."""
+        args = self.args
+        if not (args.pretrained and args.pretrained_weights
+                and args.architecture == "deeplab"):
+            return
+        if self._pretrained is None:
+            self._pretrained = pretrained.backbone_state_dict(
+                pretrained.load_backbone_state_dict(args.pretrained_weights),
+                args.backbone)
+        head = self.model.deeplab if self.dual_head else self.model
+        pretrained.transplant_backbone(head.backbone, self._pretrained)
+
     @property
     def bundle(self) -> ModelBundle:
         return ModelBundle(self.model, self.device)
@@ -179,10 +203,14 @@ class Trainer:
         num_img_tr = len(self.train_loader)
         self.model.train()
         weights = (w_dl, w_un) if self.dual_head else ()
-        # the dual trainer's panel shows one train batch, picked over the
-        # train loader (accuracy_predictor_train.py:91) from the host stream
-        vis_index = (int(self.rng.random() * num_img_tr)
-                     if self.dual_head and self.writer is not None else -1)
+        # the train grid shows one train batch, picked from the host stream
+        # over the train loader for the dual trainer
+        # (accuracy_predictor_train.py:91), over the val loader for the
+        # passive one (train.py:106)
+        vis_index = -1
+        if self.train_grids and self.writer is not None:
+            vis_index = int(self.rng.random() * (
+                num_img_tr if self.dual_head else len(self.val_loader)))
         vis_batch = None
         device_losses, lrs = [], []
         epoch_start = time.perf_counter()
@@ -217,10 +245,16 @@ class Trainer:
             # predicted at the epoch's end with the eval step, as the JAX
             # trainer does (the reference logs the mid-epoch output)
             out = self.eval_step(vis_batch, self.args.batch_size, *weights)
-            self.summary.create_single_visualization(
-                self.writer, f"train/run_{self.num_current_labeled_samples:04d}",
-                self.args.dataset, vis_batch["image"], vis_batch["label"],
-                out["pred"], out["unet_target"], out["err_pred"], epoch)
+            if self.dual_head:
+                self.summary.create_single_visualization(
+                    self.writer,
+                    f"train/run_{self.num_current_labeled_samples:04d}",
+                    self.args.dataset, vis_batch["image"], vis_batch["label"],
+                    out["pred"], out["unet_target"], out["err_pred"], epoch)
+            else:
+                self.summary.visualize_image(
+                    self.writer, self.args.dataset, vis_batch["image"],
+                    vis_batch["label"], out["pred"], epoch, prefix="train")
         print(f"[Epoch: {epoch}] Loss: {train_loss:.3f} "
               f"BestPred: {self.best_pred:.3f} "
               f"({imgs_per_sec:.1f} imgs/s)")

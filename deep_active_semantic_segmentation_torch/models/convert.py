@@ -1,10 +1,11 @@
 """Carry weights across from the JAX package's flax trees.
 
-``flax_to_deeplab_state_dict``, ``flax_to_enet_state_dict`` and
-``flax_to_unet_state_dict`` are the exact inverses of the JAX package's
-``models/pretrained.py`` mappings (``mobilenet_state_dict_to_flax`` with
-``deeplab_state_dict_to_flax``, ``enet_state_dict_to_flax`` and
-``unet_state_dict_to_flax``): each takes the (params, batch_stats) trees
+``flax_to_deeplab_state_dict``, ``flax_to_enet_state_dict``,
+``flax_to_fastscnn_state_dict`` and ``flax_to_unet_state_dict`` are the
+exact inverses of the JAX package's ``models/pretrained.py`` mappings
+(``deeplab_state_dict_to_flax`` with ``mobilenet_state_dict_to_flax`` or
+``resnet_state_dict_to_flax``, ``enet_state_dict_to_flax``,
+``fastscnn_state_dict_to_flax`` and ``unet_state_dict_to_flax``): each takes the (params, batch_stats) trees
 as numpy and returns a ``state_dict`` under the reference's torch key
 names, which are also this package's module names. So the result loads
 with ``model.load_state_dict`` (strict), a reference checkpoint loads
@@ -97,14 +98,35 @@ def _mobilenet(w: _Writer, prefix: str) -> None:
         w.sd[f"{prefix}{split}_level_features.{rest}"] = w.sd[key]
 
 
+def _resnet(w: _Writer, prefix: str) -> None:
+    """The flax ResNet's ``layer{s}_{i}`` blocks -> torchvision's
+    ``layer{s}.{i}`` keys."""
+    w.conv(("backbone", "conv1"), f"{prefix}conv1")
+    w.bn(("backbone", "bn1"), f"{prefix}bn1")
+    blocks = sorted((k for k in w.params["backbone"] if k.startswith("layer")),
+                    key=lambda k: tuple(int(n) for n in k[5:].split("_")))
+    for name in blocks:
+        b = ("backbone", name)
+        t = prefix + name.replace("_", ".")
+        for j in (1, 2, 3):
+            w.conv(b + (f"conv{j}",), f"{t}.conv{j}")
+            w.bn(b + (f"bn{j}",), f"{t}.bn{j}")
+        if "downsample_conv" in w.params["backbone"][name]:
+            w.conv(b + ("downsample_conv",), f"{t}.downsample.0")
+            w.bn(b + ("downsample_bn",), f"{t}.downsample.1")
+
+
 def flax_to_deeplab_state_dict(params: Dict, batch_stats: Dict,
                                backbone: str = "mobilenet") -> "OrderedDict[str, torch.Tensor]":
-    """JAX DeepLab (params, batch_stats) trees -> reference-named state_dict."""
-    if backbone != "mobilenet":
-        raise NotImplementedError(f"backbone '{backbone}' is not ported yet "
-                                  "(ROADMAP A14)")
+    """JAX DeepLab (params, batch_stats) trees -> reference-named state_dict
+    (``backbone`` 'mobilenet', 'resnet' or 'resnet101')."""
     w = _Writer(params, batch_stats)
-    _mobilenet(w, "backbone.")
+    if backbone == "mobilenet":
+        _mobilenet(w, "backbone.")
+    elif backbone in ("resnet", "resnet101"):
+        _resnet(w, "backbone.")
+    else:
+        raise NotImplementedError(backbone)
     for i in (1, 2, 3, 4):
         w.conv(("aspp", f"aspp{i}", "atrous_conv"), f"aspp.aspp{i}.atrous_conv")
         w.bn(("aspp", f"aspp{i}", "bn"), f"aspp.aspp{i}.bn")
@@ -179,6 +201,44 @@ def flax_to_enet_state_dict(params: Dict, batch_stats: Dict) -> "OrderedDict[str
     upsample("upsample5_0")
     regular("regular5_1")
     w.sd["transposed_conv.weight"] = _tconv(params["transposed_conv"]["kernel"])
+    return w.sd
+
+
+def flax_to_fastscnn_state_dict(params: Dict, batch_stats: Dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX FastSCNN (params, batch_stats) trees -> reference-named
+    state_dict, without the reference's unused ``classifier.sconv2``."""
+    w = _Writer(params, batch_stats)
+
+    def convblock(name: str, key: str):
+        w.conv((name, "conv1"), f"{key}.conv1")
+        w.bn((name, "bn"), f"{key}.bn")
+
+    def sepconv(name: str, key: str):
+        w.conv((name, "dw"), f"{key}.0")
+        w.bn((name, "dw_bn"), f"{key}.1")
+        w.conv((name, "pw"), f"{key}.2")
+        w.bn((name, "pw_bn"), f"{key}.3")
+
+    convblock("ltd_conv1", "learning_to_downsample.conv1")
+    sepconv("ltd_sconv1", "learning_to_downsample.sconv1")
+    sepconv("ltd_sconv2", "learning_to_downsample.sconv2")
+    for idx in range(9):
+        b = f"gfe_block_{idx}"
+        t = (f"global_feature_extractor."
+             f"{('first', 'second', 'third')[idx // 3]}_block.{idx % 3}.conv")
+        for flax_conv, flax_bn, j in (("pw_expand", "bn_expand", 0),
+                                      ("dw", "bn_dw", 3),
+                                      ("pw_linear", "bn_linear", 6)):
+            w.conv((b, flax_conv), f"{t}.{j}")
+            w.bn((b, flax_bn), f"{t}.{j + 1}")
+    for i in range(4):
+        w.conv(("ppm", f"stage_{i}"), f"global_feature_extractor.ppm.stages.{i}.1")
+    w.conv(("ppm", "bottleneck"), "global_feature_extractor.ppm.bottleneck")
+    convblock("ff_sconv1", "feature_fusion.sconv1")
+    w.conv(("ff_conv_low",), "feature_fusion.conv_low_res")
+    w.conv(("ff_conv_high",), "feature_fusion.conv_high_res")
+    convblock("clf_sconv1", "classifier.sconv1")
+    w.conv(("clf_conv",), "classifier.conv")
     return w.sd
 
 

@@ -1,8 +1,10 @@
 """DeepLab-v3+ (parity: reference models/deeplab.py:11-89, JAX package
 models/deeplab.py).
 
-backbone -> ASPP -> decoder -> align-corners bilinear upsample to input
-resolution, NCHW. Call-time flags mirror the JAX package's:
+backbone (MobileNetV2, or ResNet-50/101) -> ASPP -> decoder ->
+align-corners bilinear upsample to input resolution, NCHW; ASPP's and the
+decoder's input widths are the backbone's (320 and 24 for MobileNetV2,
+2048 and 256 for ResNet). Call-time flags mirror the JAX package's:
 
 * ``use_dropout`` — activates every Dropout2d site (the reference's
   turn_on_dropout, mc_dropout.py:175-178); defaults to ``self.training``.
@@ -31,7 +33,8 @@ import torch
 import torch.nn as nn
 
 from deep_active_semantic_segmentation_torch.models.aspp import ASPP
-from deep_active_semantic_segmentation_torch.models.backbone import build_backbone
+from deep_active_semantic_segmentation_torch.models.backbone import (
+    FEATURE_CHANNELS, build_backbone)
 from deep_active_semantic_segmentation_torch.models.decoder import Decoder
 from deep_active_semantic_segmentation_torch.models.layers import feature_noise
 from deep_active_semantic_segmentation_torch.ops.interpolate import (
@@ -48,8 +51,9 @@ class DeepLab(nn.Module):
         self.num_classes = num_classes
         self.backbone = build_backbone(backbone, output_stride, mc_dropout,
                                        input_channels)
-        self.aspp = ASPP(320, output_stride)
-        self.decoder = Decoder(num_classes, 24)
+        high, low = FEATURE_CHANNELS[backbone]
+        self.aspp = ASPP(high, output_stride)
+        self.decoder = Decoder(num_classes, low)
 
     def forward(self, x, use_dropout: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None,

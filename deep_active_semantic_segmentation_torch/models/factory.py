@@ -1,6 +1,6 @@
-"""Model factory. DeepLab, ENet, the UNet and the two-headed accuracy
-predictor are ported; FastSCNN raises, naming the ROADMAP item that ports
-it."""
+"""Model factory (parity: the JAX package's models/factory.py): DeepLab
+(MobileNetV2, ResNet-50 or ResNet-101 backbone), ENet, FastSCNN, the UNet
+and the two-headed accuracy predictor."""
 
 from __future__ import annotations
 
@@ -13,10 +13,9 @@ from deep_active_semantic_segmentation_torch.models.accuracy_predictor import (
     DeepLabAccuracyPredictor)
 from deep_active_semantic_segmentation_torch.models.deeplab import DeepLab
 from deep_active_semantic_segmentation_torch.models.enet import ENet
+from deep_active_semantic_segmentation_torch.models.fastscnn import FastSCNN
 from deep_active_semantic_segmentation_torch.models.layers import init_weights
 from deep_active_semantic_segmentation_torch.models.unet import UNet
-
-_NOT_PORTED = {"fastscnn": "A14"}
 
 
 def build_model(architecture: str, num_classes: int, backbone: str = "mobilenet",
@@ -28,9 +27,6 @@ def build_model(architecture: str, num_classes: int, backbone: str = "mobilenet"
     drawn from ``generator`` (a generator on that device; a fresh one
     seeded 0 when omitted), in eval mode. ``enet_head`` and ``symmetry``
     choose the accuracy predictor's heads."""
-    if architecture in _NOT_PORTED:
-        raise NotImplementedError(f"architecture '{architecture}' is not "
-                                  f"ported yet (ROADMAP {_NOT_PORTED[architecture]})")
     device = resolve_device(device)
     if architecture == "deeplab":
         model = DeepLab(num_classes=num_classes, backbone=backbone,
@@ -40,6 +36,8 @@ def build_model(architecture: str, num_classes: int, backbone: str = "mobilenet"
         # the JAX package's factory (factory.py:35-37): ReLU throughout
         model = ENet(num_classes=num_classes, encoder_relu=True,
                      decoder_relu=True)
+    elif architecture == "fastscnn":
+        model = FastSCNN(num_classes=num_classes)
     elif architecture == "unet":
         model = UNet(in_channels=input_channels, num_classes=num_classes)
     elif architecture == "accuracy_predictor":

@@ -103,11 +103,13 @@ def _step_votes(model, out: torch.Tensor, fused: bool, H: int, W: int):
     """One MC step's votes from the tail output of a forward run with
     ``upsample_logits=False``: DeepLab's decoder-resolution logits through
     B1 at an exact 4x (else the model's own align-corners upsample and an
-    argmax), (B, H, W); ENet's stage-5 features through B2 at an exact 2x,
-    parity-major (B, 4, H/2, W/2) (else the model's transposed-conv
-    classifier and an argmax, (B, H, W))."""
-    if model.model_name == "deeplab":
-        if fused and ua.supports(out.shape[2:], (H, W)):
+    argmax), (B, H, W); FastSCNN's 1/8 logits the same way, never fused
+    (the JAX package fuses DeepLab only); ENet's stage-5 features through
+    B2 at an exact 2x, parity-major (B, 4, H/2, W/2) (else the model's
+    transposed-conv classifier and an argmax, (B, H, W))."""
+    if model.model_name in ("deeplab", "fastscnn"):
+        if (fused and model.model_name == "deeplab"
+                and ua.supports(out.shape[2:], (H, W))):
             return ua.upsample4_argmax(out, out_size=(H, W))
         return resize_bilinear_align_corners(out, H, W).argmax(dim=1)
     if fused and tv.supports(out.shape[2:], (H, W)):
@@ -122,13 +124,15 @@ def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
                          compute_dtype: str = "float32",
                          labels_packed: bool = False) -> torch.Tensor:
     """(B, H, W) f32 masked vote-entropy maps over ``num_steps``
-    stochastic forwards of an eval-mode DeepLab or ENet, every draw taken
-    from ``generator``.
+    stochastic forwards of an eval-mode DeepLab, ENet or FastSCNN, every
+    draw taken from ``generator`` (FastSCNN has no dropout or noise site:
+    only 'input' noise moves its votes, as in the JAX package).
 
     noise_mode (the JAX package's kernels.py:61-64):
       'dropout' — MC dropout; the deterministic prefix is hoisted (DeepLab's
                   backbone, ENet's initial block and ``downsample1_0`` up
-                  to its dropout) and runs once per batch;
+                  to its dropout) and runs once per batch (FastSCNN: no
+                  hoist);
       'input'   — the normalized images + 0.125 * N(0, 1) in the compute
                   dtype (the draw is f32), dropout off;
       'feature' — the models' ``noisy_features`` sites, dropout off.
@@ -146,9 +150,8 @@ def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
     if noise_mode not in ("dropout", "input", "feature"):
         raise NotImplementedError(noise_mode)
     model_name = getattr(model, "model_name", "")
-    if model_name not in ("deeplab", "enet"):
-        raise NotImplementedError(f"MC scoring is ported for DeepLab and ENet "
-                                  f"only, not '{model_name}'")
+    if model_name not in ("deeplab", "enet", "fastscnn"):
+        raise NotImplementedError(f"MC scoring of '{model_name}'")
     if model.training:
         raise ValueError("MC scoring needs the model in eval mode (BN at "
                          "running statistics)")
@@ -157,10 +160,10 @@ def mc_vote_entropy_maps(model, images, labels, generator: torch.Generator,
     with torch.inference_mode(), _mc_precision():
         x = normalize_on_device(images).to(getattr(torch, compute_dtype))
         hoist = {}
-        if noise_mode == "dropout":
-            hoist = ({"backbone_features": model(x, backbone_only=True)}
-                     if model_name == "deeplab" else
-                     {"prefix_features": model(x, prefix_only=True)})
+        if noise_mode == "dropout" and model_name == "deeplab":
+            hoist = {"backbone_features": model(x, backbone_only=True)}
+        elif noise_mode == "dropout" and model_name == "enet":
+            hoist = {"prefix_features": model(x, prefix_only=True)}
         votes = None
         for s in range(num_steps):
             if noise_mode == "dropout":

@@ -341,3 +341,66 @@ def test_input_gradient_norms_on_the_card_equal_the_cpu(cuda_device):
     want = kernels.input_gradient_norms(cpu_model, image, label, 21)
     assert got.device.type == "cuda" and torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_native_loader_puts_its_batches_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """A passive pool's Loader on the card: every resize on the native
+    resampler (PIL's resize raises), the device batches equal to the host
+    batches byte for byte, the images and labels on the card."""
+    import random
+
+    import numpy as np
+    from PIL import Image
+
+    from deep_active_semantic_segmentation_torch.data import pools
+    from deep_active_semantic_segmentation_torch.data.loader import Loader
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+
+    store = DirectoryStore(str(tmp_path), readonly=False)
+    rng = np.random.RandomState(0)
+    keys = [f"/leftImg8bit/train/city/img_{i}.png".encode() for i in range(5)]
+    for key in keys:
+        store.put(key, rng.randint(0, 256, (256, 512, 4), dtype=np.uint8))
+    store.finalize(keys)
+    monkeypatch.setattr(Image.Image, "resize",
+                        lambda *a, **kw: pytest.fail("PIL resize called"))
+    batches = {}
+    for where in ("host", "card"):
+        pool = pools.PassivePool(pools.CITYSCAPES, DirectoryStore(str(tmp_path)),
+                                 129, 129, "train", rng=random.Random(7))
+        loader = Loader(pool, 2, shuffle=True, seed=3, device=cuda_device)
+        batches[where] = list(loader if where == "host" else loader.device_batches())
+    assert len(batches["card"]) == 3
+    for h, c in zip(batches["host"], batches["card"], strict=True):
+        assert c["image"].device.type == "cuda" and c["image"].dtype == torch.uint8
+        assert torch.equal(c["image"].cpu(), torch.from_numpy(h["image"]))
+        assert torch.equal(c["label"].cpu(), torch.from_numpy(h["label"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,backbone,side", [("deeplab", "resnet", 65),
+                                                ("deeplab", "resnet101", 65),
+                                                ("enet", "mobilenet", 64),
+                                                ("fastscnn", "mobilenet", 64)])
+def test_zoo_forward_on_the_card_equals_the_cpu(cuda_device, arch, backbone, side):
+    """The rest of the zoo on the card against the CPU from the same
+    weights (TF32 off): eval logits within 1e-4 of the largest."""
+    import copy
+
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+
+    gen = torch.Generator().manual_seed(5)
+    cpu_model = build_model(arch, 19, backbone=backbone, device="cpu", generator=gen)
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    x = torch.randn(2, 3, side, side, generator=gen)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = card_model(x.to(cuda_device)).cpu()
+            want = cpu_model(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert got.shape == want.shape == (2, 19, side, side)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()

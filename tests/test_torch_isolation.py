@@ -20,15 +20,18 @@ for name in names:
 import chip_smoke
 import active_train_torch
 import accuracy_predictor_train_torch
+import train_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
                                              "deep_active_semantic_segmentation_tpu")))
 missing = {"ops.region", "selection.region_pipeline", "selection.ceal",
            "ops.distance", "selection.mc_noise", "selection.core_set",
            "selection.max_subset", "selection.accuracy", "models.unet",
-           "models.accuracy_predictor"} - {n.split(".", 1)[1] for n in names}
+           "models.accuracy_predictor", "data.native", "models.fastscnn",
+           "models.pretrained", "models.backbone.resnet"} - {
+    n.split(".", 1)[1] for n in names}
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
-sys.exit(1 if bad or missing or len(names) < 54 else 0)
+sys.exit(1 if bad or missing or len(names) < 58 else 0)
 """
 
 
@@ -64,6 +67,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     import accuracy_predictor_train_torch
     import active_train_torch
+    import train_torch
     from deep_active_semantic_segmentation_torch.config import parse_cli
     from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
     from deep_active_semantic_segmentation_torch.data.loader import Loader
@@ -83,6 +87,9 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         active_train_torch.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         accuracy_predictor_train_torch.main(argv, dataset_root=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_torch.main(argv + ["--dataset", "cityscapes"],
+                         dataset_root=str(tmp_path))
     loaders = (Loader([], 2), Loader([], 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, *loaders, 19)
@@ -101,10 +108,10 @@ def test_unported_parts_name_their_roadmap_item():
     from deep_active_semantic_segmentation_torch.selection import (
         get_active_selection_class)
 
-    with pytest.raises(NotImplementedError, match="A14"):
-        build_model("fastscnn", 19, device="cpu")
-    # the UNet and the two-headed predictor are ported (A13b); ENet as the
-    # predictor's trained head waits for A12
+    # the whole zoo is ported: FastSCNN, the ResNet backbones, the UNet and
+    # the two-headed predictor, whose segmentation head may be an ENet
+    fastscnn = build_model("fastscnn", 19, device="cpu")
+    assert fastscnn.model_name == "fastscnn" and not fastscnn.training
     unet = build_model("unet", 2, input_channels=22, device="cpu")
     predictor = build_model("accuracy_predictor", 19, backbone="mobilenet",
                             device="cpu")
@@ -114,15 +121,20 @@ def test_unported_parts_name_their_roadmap_item():
     from deep_active_semantic_segmentation_torch.data.loader import Loader
     from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
     enet_cfg = parse_cli(["--architecture", "enet", "--seed", "1"]).finalize()
-    with pytest.raises(NotImplementedError, match="A12"):
-        Trainer(enet_cfg, Loader([], 2), Loader([], 2), 19, device="cpu",
-                dual_head=True)
+    trainer = Trainer(enet_cfg, Loader([], 2), Loader([], 2), 19, device="cpu",
+                      dual_head=True)
+    trainer.initialize()
+    assert trainer.model.deeplab.model_name == "enet"
     # ENet is ported: the JAX factory's config, on the CPU when asked
     enet = build_model("enet", 19, device="cpu")
     assert enet.model_name == "enet" and not enet.training
     assert isinstance(enet.initial_block.out_act, torch.nn.ReLU)
-    with pytest.raises(NotImplementedError, match="A14"):
-        build_model("deeplab", 19, backbone="resnet", device="cpu")
+    for backbone in ("resnet", "resnet101"):
+        model = build_model("deeplab", 19, backbone=backbone, device="cpu")
+        assert model.aspp.aspp1.atrous_conv.in_channels == 2048
+        assert model.decoder.conv1.in_channels == 256
+    with pytest.raises(NotImplementedError, match="xception"):
+        build_model("deeplab", 19, backbone="xception", device="cpu")
     # every selection mode of active_train.py has its selector; the
     # accuracy-predictor driver's scorers are the oracle selector's methods
     # (as in the JAX package, whose factory has no 'accuracy' mode)

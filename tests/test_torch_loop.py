@@ -281,14 +281,22 @@ def test_unported_parts_raise_naming_their_item(dataset_root, tmp_path):
                         (region + ["--active-selection-mode", "ceal_entropy"],
                          "does not support region datasets"),
                         (region, r"ROADMAP C, random on region"),
-                        (["--dataset", "cityscapes"], "A14"),
-                        (["--architecture", "enet"], "A12"),
-                        (["--pretrained-weights", "w.pth"], "A14"),
                         (["--remat"], "remat")):
         cfg = pt_config.parse_cli(base + extra).finalize()
         with pytest.raises(NotImplementedError, match=item):
             pt_run_active_loop(cfg, dataset_root=dataset_root,
                                runs_root=str(tmp_path), device="cpu")
+    # ENet training and the transplant are ported; a passive dataset is
+    # train_torch.py's, and a missing backbone file is reported as such
+    cfg = pt_config.parse_cli(base + ["--dataset", "cityscapes"]).finalize()
+    with pytest.raises(ValueError, match="train_torch.py"):
+        pt_run_active_loop(cfg, dataset_root=dataset_root,
+                           runs_root=str(tmp_path), device="cpu")
+    cfg = pt_config.parse_cli(base + ["--pretrained-weights",
+                                      str(tmp_path / "w.pth")]).finalize()
+    with pytest.raises(FileNotFoundError, match="w.pth"):
+        pt_run_active_loop(cfg, dataset_root=dataset_root,
+                           runs_root=str(tmp_path), device="cpu")
     # the JAX loop's own up-front check: core-set on images only
     cfg = pt_config.parse_cli(base + region + ["--active-selection-mode",
                                                "coreset"]).finalize()

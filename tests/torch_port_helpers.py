@@ -18,14 +18,20 @@ NUM_CLASSES = 19
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """Run a test module's torch CPU ops on one thread. Its forwards are
-    many small ops; under pytest-xdist every worker's intra-op pool
-    competes for the same cores, and the pools' barriers then cost far more
-    than the ops themselves. Import this fixture into the module to use it."""
-    saved = torch.get_num_threads()
+    """Run a test module's torch CPU ops, and the native resampler's OpenMP
+    loops, on one thread. Its forwards are many small ops; under
+    pytest-xdist every worker's intra-op pool competes for the same cores,
+    and the pools' barriers (and OpenMP's spinning workers) then cost far
+    more than the ops themselves. Import this fixture into the module to
+    use it."""
+    from deep_active_semantic_segmentation_torch.data import native
+
+    saved = torch.get_num_threads(), native.get_num_threads()
     torch.set_num_threads(1)
+    native.set_num_threads(1)
     yield
-    torch.set_num_threads(saved)
+    torch.set_num_threads(saved[0])
+    native.set_num_threads(saved[1])
 
 
 def jax_deeplab(seed: int = 0, num_classes: int = NUM_CLASSES):
