@@ -115,7 +115,26 @@
    accuracy predictor's dual step at Pascal's 512 letterbox. The
    ResNet-50 DeepLab variance query (20 images, batch 5) runs with the
    main paths of 4: B1 80 launches.
-12. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+12. Slice 9, checkpoint replay and the remaining entry points, every
+   phase with its launch counts set to 0 just before and read just after
+   (no B1 or B2 launch but the profiling phase's 20): visualize_torch.main
+   on the AL-round phase's round 0 best.ckpt (its mIoU equal to the run's
+   best_pred.txt to 1e-9, one PNG triple per val image, eval images/s);
+   eval_series_torch.main over that experiment and, with --dual-head,
+   over the accuracy predictor's active_pascal_image run (every row's
+   mIoU equal to its best_pred.txt, validation_mIoUs.txt written); the
+   SEM trainer,
+   unet_train_torch.main at its own width (UNet(1, 2), crop 512, batch 2,
+   RMSprop) for 5 epochs over synthetic 768x1024 grayscale PNGs, its f32
+   step timed with its peak memory, one step against the CPU; the dataset
+   converter on synthetic Cityscapes (1024x2048 PNGs, labelIds) and
+   Pascal VOC (375x500 JPEGs) folders, records equal to the remapped
+   sources, seed sets emitted, the stores read back onto the card,
+   records/s; compare_selections of the AL round against the
+   accuracy_eval consumer that replays it (every round N/N); a
+   torch.profiler trace (utils/profiling.trace) of one canonical dropout
+   batch naming B1's kernel 20 times, Throughput against CUDA events.
+13. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -126,6 +145,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import random
@@ -2817,6 +2837,479 @@ def enet_dual_phase(torch, seed: int, root: Path):
     return out
 
 
+# ------------------------------------------- slice 9: replay and the tools
+
+# the SEM trainer's phase: unet_train.py's width (UNet(1, 2), crop 512,
+# batch 2, RMSprop lr 0.001) over SEM_TRAIN + SEM_VAL synthetic grayscale
+# PNGs of SEM_HW (short side above 512, so FixScaleCrop resizes), for
+# SEM_EPOCHS epochs: 5, the first epoch that prints the validation line
+SEM_HW, SEM_TRAIN, SEM_VAL, SEM_EPOCHS = (768, 1024), 8, 2, 5
+SEM_CROP, SEM_BATCH, SEM_LR = 512, 2, 0.001
+# the converter's phase: Cityscapes-sized leftImg8bit PNGs with gtFine
+# labelIds, and VOC-sized JPEGs with SegmentationClassRaw PNGs
+CONVERT_SPLITS = {"train": 6, "val": 2}
+# the flags ACC_ARGV adds for accuracy_predictor_train.py alone
+ACC_CLI_FLAGS = ("--active-selection-mode", "--weight-unet", "--weight-wrong-label-unet")
+
+
+@contextlib.contextmanager
+def timed_evaluations(torch):
+    """``engine.evaluation.evaluate_checkpoint`` timed for the length of a
+    ``with`` block; yields the list each call's seconds (the card
+    synchronized at both ends) are appended to."""
+    from deep_active_semantic_segmentation_torch.engine import evaluation
+
+    real = evaluation.evaluate_checkpoint
+    seconds = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return result
+
+    evaluation.evaluate_checkpoint = timed
+    try:
+        yield seconds
+    finally:
+        evaluation.evaluate_checkpoint = real
+
+
+def logged_miou(run_dir: Path) -> float:
+    return float((run_dir / "best_pred.txt").read_text().split("\n")[0])
+
+
+def visualize_phase(torch, seed: int, root: Path):
+    """``visualize_torch.main`` on the AL-round phase's round 0 best.ckpt
+    (DeepLab-v3+/MobileNetV2, os16, 19 classes, crop 513, batch 5, the 5
+    val records of 1024x2048): the replayed mIoU equals the run's
+    best_pred.txt to 1e-9, one img/tgt/prd PNG triple per val image; eval
+    images/s over ``evaluate_checkpoint`` (checkpoint read and PNGs
+    included)."""
+    import visualize_torch
+
+    run = sorted((root / "runs" / "active_cityscapes_image" / "round").glob("run_*"))[0]
+    argv = ROUND_ARGV + ["--seed", str(seed), "--checkname", "round",
+                         "--checkpoint", str(run / "best.ckpt")]
+    t0 = time.perf_counter()
+    with timed_evaluations(torch) as seconds:
+        m = visualize_torch.main(argv, dataset_root=str(root), device=DEVICE)
+    wall_s = time.perf_counter() - t0
+    logged = logged_miou(run)
+    pngs = sorted(p.name for p in (run / "visualizations").iterdir())
+    print(f"visualize_torch on {run.name}/best.ckpt: mIoU {m['mIoU']!r} vs logged "
+          f"{logged!r}; {len(pngs)} PNGs; eval {VAL / seconds[0]:.2f} images/s "
+          f"({seconds[0]:.3f} s for {VAL} images, PNGs included); phase {wall_s:.3f} s "
+          f"on {card_line()}", flush=True)
+    check(abs(m["mIoU"] - logged) <= 1e-9, "the replayed mIoU equals best_pred.txt")
+    check(pngs == sorted(f"{kind}_0000_{i:02d}.png" for kind in ("img", "tgt", "prd")
+                         for i in range(VAL)),
+          f"one img/tgt/prd triple per val image: {pngs}")
+    return {"run": run.name, "metrics": m, "logged_miou": logged,
+            "eval_s": seconds[0], "eval_images_per_s": VAL / seconds[0],
+            "wall_s": wall_s}
+
+
+def eval_series_phase(torch, seed: int, root: Path):
+    """``eval_series_torch.main`` over the AL-round phase's run_* directories,
+    then with ``--dual-head`` over the accuracy_predictor_train_torch
+    active_pascal_image run (the 512 letterbox): every row's mIoU equals
+    its best_pred.txt to 1e-9, validation_mIoUs.txt holds one row per
+    round, the dual rows carry UNetAcc / UNetmIoU."""
+    import eval_series_torch
+
+    runs = root / "runs"
+    acc_argv = [a for i, a in enumerate(ACC_ARGV) if a not in ACC_CLI_FLAGS
+                and (i == 0 or ACC_ARGV[i - 1] not in ACC_CLI_FLAGS)]
+    out = {}
+    for name, dataset, argv in (
+            ("image", "active_cityscapes_image",
+             ROUND_ARGV + ["--seed", str(seed), "--checkname", "round"]),
+            ("dual_head", "active_pascal_image",
+             acc_argv + ["--dataset", "active_pascal_image", "--seed", str(seed),
+                         "--checkname", "acc", "--dual-head"])):
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with timed_evaluations(torch) as seconds, contextlib.redirect_stdout(text):
+            series = eval_series_torch.main(argv, dataset_root=str(root),
+                                            runs_root=str(runs), device=DEVICE)
+        wall_s = time.perf_counter() - t0
+        exp = runs / dataset / ("round" if name == "image" else "acc")
+        rows = (exp / "validation_mIoUs.txt").read_text().splitlines()
+        print(text.getvalue(), end="", flush=True)
+        print(f"eval_series_torch ({name}): {len(series)} rounds in {wall_s:.3f} s "
+              f"(evaluations {[round(s, 3) for s in seconds]} s)", flush=True)
+        check(len(rows) == len(series) == len(list(exp.glob("run_*"))) >= 1,
+              f"{name}: validation_mIoUs.txt has one row per round")
+        for pct, m in series.items():
+            logged = logged_miou(exp / f"run_{pct:04d}")
+            check(abs(m["mIoU"] - logged) <= 1e-9,
+                  f"{name} run_{pct:04d}: mIoU {m['mIoU']!r} equals best_pred.txt {logged!r}")
+            check(("UNetAcc" in m) == (name == "dual_head"),
+                  f"{name}: UNet metrics only on the dual head")
+        check(all(r.startswith("run_") and " mIoU:" in r for r in rows),
+              f"{name}: the rows' format")
+        out[name] = {"series": series, "evaluation_s": seconds, "wall_s": wall_s}
+    return out
+
+
+def write_sem(root: Path, seed: int):
+    """``root/sem/{train,val}/{images,masks}``: SEM_TRAIN and SEM_VAL
+    grayscale PNGs of SEM_HW from ``seed`` (smoothed noise) with blocky
+    0/255 masks."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    for split, n in (("train", SEM_TRAIN), ("val", SEM_VAL)):
+        for sub in ("images", "masks"):
+            (root / "sem" / split / sub).mkdir(parents=True)
+        for i in range(n):
+            img = np.kron(rng.randint(0, 256, (SEM_HW[0] // 8, SEM_HW[1] // 8)),
+                          np.ones((8, 8), np.int64))
+            img = np.clip(img + rng.randint(-12, 13, SEM_HW), 0, 255).astype(np.uint8)
+            mask = np.kron(rng.rand(SEM_HW[0] // 32, SEM_HW[1] // 32) > 0.5,
+                           np.ones((32, 32), bool)).astype(np.uint8) * 255
+            Image.fromarray(img).save(root / "sem" / split / "images" / f"{i:03d}.png")
+            Image.fromarray(mask).save(root / "sem" / split / "masks" / f"{i:03d}.png")
+
+
+def unet_train_phase(torch, seed: int, root: Path):
+    """unet_train.py's path at its own width: ``unet_train_torch.main`` (UNet(1,
+    2), crop 512, batch 2, RMSprop lr 0.001) for SEM_EPOCHS epochs over
+    the synthetic SEM folders, its train lines and its validation line
+    printed with finite numbers; the f32 train step (TF32 on) timed on a
+    device-resident Loader batch with its peak memory; one f32 step (TF32
+    off, BN at running statistics) against the same step on the CPU (see
+    ``unet_card_vs_cpu``)."""
+    import unet_train_torch
+    from deep_active_semantic_segmentation_torch.data import sem
+    from deep_active_semantic_segmentation_torch.data.loader import Loader
+
+    sem_root = root / "sem_root"
+    t0 = time.perf_counter()
+    write_sem(sem_root, seed)
+    write_s = time.perf_counter() - t0
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        model, _ = unet_train_torch.main(
+            ["--epochs", str(SEM_EPOCHS), "--crop-size", str(SEM_CROP),
+             "--batch-size", str(SEM_BATCH)], dataset_root=str(sem_root), device=DEVICE)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    lines = text.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+    numbers = []
+    for token in " ".join(lines[1:]).split():
+        with contextlib.suppress(ValueError):
+            numbers.append(float(token))
+    check(lines[0] == "Initializing Training!"
+          and [line.split()[0] for line in lines[1:]] == ["Epoch"] * 5 + ["Val"]
+          and lines[-1].startswith("Val loss:") and len(numbers) == 2 * 6 + 5
+          and bool(np.isfinite(numbers).all()),
+          f"unet_train_torch prints its train lines and validation line: {lines}")
+    check(next(model.parameters()).device.type == "cuda", "the UNet trained on the card")
+
+    # the train step alone, on one device-resident batch of the Loader
+    pool = sem.SEMData(SEM_CROP, "train", dataset_root=str(sem_root),
+                       rng=random.Random(seed))
+    batch = next(iter(Loader(pool, SEM_BATCH, shuffle=True, seed=0,
+                             device=DEVICE).device_batches()))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model, _, train_step, _ = unet_train_torch.build_unet_training(SEM_LR, DEVICE, gen)
+    model.train()
+    step_ms, peak, outs = timed_steps(torch, train_step, batch)
+    losses = torch.stack([o["loss"] for o in outs]).tolist()
+    print(f"UNet(1, 2) f32 train step (TF32 on): {step_ms:.3f} ms per step of "
+          f"{SEM_BATCH} at {SEM_CROP} ({SEM_BATCH / step_ms * 1e3:.2f} images/s), "
+          f"peak memory {peak / 2**30:.3f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"unet_train_torch.main {SEM_EPOCHS} epochs {main_s:.3f} s; SEM PNGs written "
+          f"in {write_s:.3f} s; on {card_line()}", flush=True)
+    check(bool(np.isfinite(losses).all()), "UNet train losses finite")
+    return {"main_s": main_s, "lines": lines, "step_ms": step_ms,
+            "images_per_s": SEM_BATCH / step_ms * 1e3, "peak_bytes": peak,
+            "losses": losses, "card_vs_cpu": unet_card_vs_cpu(torch, seed)}
+
+
+def unet_card_vs_cpu(torch, seed: int, side: int = 64):
+    """One train step of the SEM trainer's UNet(1, 2) (RMSprop lr 0.001, CE
+    summed over the batch), batch 2 at ``side`` px, from the same weights
+    on the card and on the CPU, TF32 off, BN at running statistics; in f32
+    (the uint8 wire, SEM's normalize on the device), then with f64 weights
+    and a host-normalized f64 image, as card_vs_cpu_phase does. The loss
+    within CPU_LOSS_RTOL and the gradients within CPU_PARAM_RTOL of the
+    largest, in both; the updated parameters, in f64, every tensor within
+    CPU_PARAM_RTOL of its own largest element. In f32 the updated
+    parameters are printed, not held: RMSprop's first step is lr * g /
+    (0.1 |g| + 1e-8), about 10 lr sign(g), and this UNet's f32 gradient
+    is ill-conditioned at init (the CPU's own f32 gradient is 5.8e-4 of
+    the largest away from its f64 one), so an element with a small
+    gradient can take the other sign on the other device: a move of 20
+    lr."""
+    import copy
+
+    import unet_train_torch
+    from deep_active_semantic_segmentation_torch.data import sem
+
+    rng = np.random.RandomState(seed)
+    image = rng.randint(0, 256, (2, side, side, 1), dtype=np.uint8)
+    label = (rng.rand(2, side, side) > 0.5).astype(np.uint8)
+    label[:, :5] = 255
+    images = {"float32": image,
+              "float64": (image / 255.0 - sem.MEAN[0]) / sem.STD[0]}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dtype in ("float32", "float64"):
+            models, losses, init = {}, {}, None
+            for dev in ("cpu", DEVICE):
+                model, _, step, _ = unet_train_torch.build_unet_training(
+                    SEM_LR, dev, torch.Generator(device=dev).manual_seed(seed))
+                model.to(getattr(torch, dtype))
+                if init is None:   # the card starts from the CPU's weights
+                    init = copy.deepcopy(model.state_dict())
+                model.load_state_dict(init)
+                freeze_bn(model)
+                batch = {"image": torch.from_numpy(images[dtype]).to(dev),
+                         "label": torch.from_numpy(label).to(dev)}
+                losses[dev] = float(step(batch, 0)["loss"])
+                models[dev] = model
+            loss_rel = abs(losses[DEVICE] - losses["cpu"]) / abs(losses["cpu"])
+            card = dict(models[DEVICE].named_parameters())
+            cpu = dict(models["cpu"].named_parameters())
+            g_max = max(p.grad.abs().max().item() for p in cpu.values())
+            grad_rel = max((card[k].grad.cpu() - p.grad).abs().max().item()
+                           for k, p in cpu.items()) / g_max
+            after = {k: p.detach() for k, p in cpu.items()}
+            per_tensor = sorted(
+                ((card[k].detach().cpu() - after[k]).abs().max()
+                 / after[k].abs().max().clamp_min(1e-30)).item() for k in cpu)
+            model_rel = max((card[k].detach().cpu() - after[k]).abs().max().item()
+                            for k in cpu) / max(after[k].abs().max().item() for k in cpu)
+            print(f"card vs CPU, one {dtype} UNet(1, 2) RMSprop step at {side} px (BN at "
+                  f"running statistics, TF32 off): loss {losses[DEVICE]:.9f} vs "
+                  f"{losses['cpu']:.9f} (rel {loss_rel:.2e}, bar {CPU_LOSS_RTOL}); "
+                  f"gradients {grad_rel:.2e} of the largest (bar {CPU_PARAM_RTOL}); "
+                  f"parameters: largest difference {model_rel:.2e} of the largest weight, "
+                  f"worst tensor {per_tensor[-1]:.2e} of its own"
+                  + (f" (bar {CPU_PARAM_RTOL})" if dtype == "float64" else
+                     " (not held in f32: RMSprop's sign-like first step)"), flush=True)
+            check(loss_rel <= CPU_LOSS_RTOL, f"card and CPU {dtype} UNet step losses agree")
+            check(grad_rel <= CPU_PARAM_RTOL, f"card and CPU {dtype} UNet gradients agree")
+            if dtype == "float64":
+                check(per_tensor[-1] <= CPU_PARAM_RTOL,
+                      "card and CPU f64 UNet updated parameters agree")
+            out[dtype] = {"loss_card": losses[DEVICE], "loss_cpu": losses["cpu"],
+                          "loss_rel": loss_rel, "grad_rel": grad_rel,
+                          "model_rel": model_rel, "worst_tensor_rel": per_tensor[-1]}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return out
+
+
+def write_raw_datasets(root: Path, seed: int):
+    """The converters' input layouts under ``root``: Cityscapes
+    (``leftImg8bit/<split>/<city>/*_leftImg8bit.png``, 1024x2048 RGB, and
+    ``gtFine_trainvaltest/gtFine/<split>/<city>/*_gtFine_labelIds.png``,
+    labelIds 0-33 in blocks with a void band) and Pascal VOC
+    (``JPEGImages/*.jpg`` of 375x500, ``SegmentationClassRaw/*.png``,
+    ``ImageSets/Segmentation/<split>.txt``), CONVERT_SPLITS records per
+    split. Images are blocky with noise, so they compress as photos do."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    cs, voc = root / "cityscapes_raw", root / "voc_raw"
+    for sub in ("JPEGImages", "SegmentationClassRaw", "ImageSets/Segmentation"):
+        (voc / sub).mkdir(parents=True)
+
+    def photo(hw):
+        img = np.kron(rng.randint(0, 256, (-(-hw[0] // 16), -(-hw[1] // 16), 3)),
+                      np.ones((16, 16, 1), np.int64))[:hw[0], :hw[1]]
+        return np.clip(img + rng.randint(-6, 7, img.shape), 0, 255).astype(np.uint8)
+
+    for split, n in CONVERT_SPLITS.items():
+        names = []
+        for i in range(n):
+            city = ("aachen", "bremen")[i % 2]
+            stem = f"{city}_{i:06d}_000019"
+            for sub in ("leftImg8bit", "gtFine_trainvaltest/gtFine"):
+                (cs / sub / split / city).mkdir(parents=True, exist_ok=True)
+            Image.fromarray(photo((1024, 2048))).save(
+                cs / "leftImg8bit" / split / city / f"{stem}_leftImg8bit.png",
+                compress_level=1)
+            ids = np.kron(rng.randint(0, 34, (16, 32)), np.ones((64, 64), np.int64))
+            ids[:rng.randint(40, 120)] = 0
+            Image.fromarray(ids.astype(np.uint8)).save(
+                cs / "gtFine_trainvaltest/gtFine" / split / city
+                / f"{stem}_gtFine_labelIds.png")
+            name = f"2008_{split}{i:04d}"
+            Image.fromarray(photo((375, 500))).save(voc / "JPEGImages" / f"{name}.jpg",
+                                                    quality=90)
+            cls = np.kron(rng.randint(0, PASCAL_CLASSES, (15, 20)),
+                          np.ones((25, 25), np.int64))
+            cls[:, :6] = 255
+            Image.fromarray(cls.astype(np.uint8)).save(
+                voc / "SegmentationClassRaw" / f"{name}.png")
+            names.append(name)
+        (voc / "ImageSets/Segmentation" / f"{split}.txt").write_text(
+            "".join(x + "\n" for x in names))
+    return cs, voc
+
+
+def convert_phase(torch, seed: int, root: Path):
+    """``data/convert.main`` on synthetic Cityscapes and Pascal VOC folders,
+    both splits: every record equals its image and the 34 -> 19 remap of
+    its labelIds (Pascal: its raw class PNG), each train split emits its
+    seed set (SEED_SET keys of the store), and the converted stores are
+    read back through the port's Loader onto the card (train.py's
+    ``cityscapes`` at crop 513 and ``pascal`` at the 512 letterbox);
+    records/s of each conversion."""
+    from PIL import Image
+
+    from deep_active_semantic_segmentation_torch.data import convert
+    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+
+    t0 = time.perf_counter()
+    sources = dict(zip(("cityscapes", "pascal"), write_raw_datasets(root / "raw", seed)))
+    write_s = time.perf_counter() - t0
+    out_root = root / "converted"
+    table = convert.cityscapes_class_map()
+    rates = {}
+    for family, src in sources.items():
+        for split, n in CONVERT_SPLITS.items():
+            out = out_root / family / split
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                keys = convert.main([family, str(src), split, str(out),
+                                     "--seed-set-count", str(SEED_SET // 2),
+                                     "--seed-set-seed", str(seed)])
+            seconds = time.perf_counter() - t0
+            rates[f"{family} {split}"] = n / seconds
+            store = DirectoryStore(str(out))
+            check(store.keys() == keys and len(keys) == n, f"{family} {split}: {n} records")
+            for key in keys:
+                rec = np.asarray(store.get(key))
+                if family == "cityscapes":
+                    path = src / key.decode().lstrip("/")
+                    lab_path = (src / "gtFine_trainvaltest/gtFine" / split / path.parent.name
+                                / path.name.replace("leftImg8bit.png", "gtFine_labelIds.png"))
+                    want = np.dstack((np.array(Image.open(path).convert("RGB")),
+                                      table[np.array(Image.open(lab_path))]))
+                else:
+                    name = key.decode()
+                    want = np.dstack((
+                        np.array(Image.open(src / "JPEGImages" / f"{name}.jpg").convert("RGB")),
+                        np.array(Image.open(src / "SegmentationClassRaw" / f"{name}.png"))))
+                check(rec.dtype == np.uint8 and np.array_equal(rec, want),
+                      f"{family} {key!r}: the record is the image and its remapped labels")
+        seeds = (out_root / family / "seed_sets" / "set_0.txt").read_text().splitlines()
+        train_keys = {k.decode() for k in DirectoryStore(str(out_root / family / "train")).keys()}
+        check(len(seeds) == min(SEED_SET // 2, CONVERT_SPLITS["train"])
+              and set(seeds) <= train_keys, f"{family}: the seed set is emitted")
+        check(family != "cityscapes" or set(np.unique(np.asarray(store.get(keys[0]))[..., 3]))
+              <= set(range(NUM_CLASSES)) | {255}, "cityscapes labels are trainIds")
+
+    loaded = {}
+    for family, crop in (("cityscapes", 513), ("pascal", -1)):
+        base = 513 if crop != -1 else 512
+        _, _, val_loader, _, nclass = make_dataloader(
+            family, base, crop, 2, dataset_root=str(out_root), seed=seed, device=DEVICE)
+        host = list(val_loader)
+        card = list(val_loader.device_batches())
+        side = crop if crop != -1 else base
+        check(len(card) == 1 and card[0]["image"].device.type == "cuda"
+              and tuple(card[0]["image"].shape) == (2, side, side, 3)
+              and torch.equal(card[0]["image"].cpu(), torch.from_numpy(host[0]["image"]))
+              and torch.equal(card[0]["label"].cpu(), torch.from_numpy(host[0]["label"])),
+              f"{family}: the converted val split reaches the card through the Loader")
+        loaded[family] = {"classes": nclass, "shape": list(card[0]["image"].shape)}
+    print(f"convert: records/s {json.dumps({k: round(v, 3) for k, v in rates.items()})}; "
+          f"raw folders written in {write_s:.3f} s; converted stores read back onto the "
+          f"card {json.dumps(loaded)}", flush=True)
+    return {"records_per_s": rates, "raw_write_s": write_s, "loaded": loaded}
+
+
+def compare_selections_phase(root: Path):
+    """``compare_selections`` of the AL-round phase's experiment against the
+    ``accuracy_eval`` consumer round that replays it: every common round
+    N/N."""
+    from deep_active_semantic_segmentation_torch.utils.compare_selections import (
+        compare_selections)
+
+    exp = root / "runs" / "active_cityscapes_image"
+    results = compare_selections(str(exp / "round"), str(exp / "consumer"))
+    check(len(results) == 2 and all(n == total > 0 for n, total in results.values()),
+          f"every common round agrees N/N: {results}")
+    return {"rounds": results}
+
+
+def profiling_phase(torch, seed: int, store, paths, root: Path):
+    """``utils/profiling.trace`` around one batch of the canonical DeepLab
+    dropout query (DeepLab-v3+/MobileNetV2, 513², batch 5, 20 MC steps:
+    the selector's scorer on one device batch), launch counts set to 0
+    just before and read just after: B1 20 launches, the written trace
+    names B1's kernel 20 times, and ``Throughput`` (host clock, marked
+    with the scorer's CUDA result) agrees with the phase's CUDA events
+    within 10%."""
+    from deep_active_semantic_segmentation_torch import constants
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.selection import (
+        ModelBundle, get_active_selection_class)
+    from deep_active_semantic_segmentation_torch.utils.profiling import Throughput, trace
+
+    cfg = PATHS["deeplab"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = build_model("deeplab", NUM_CLASSES, device=DEVICE, generator=gen, **cfg["build"])
+    sel = get_active_selection_class("variance", NUM_CLASSES, store, cfg["crop"],
+                                     cfg["batch"], device=DEVICE)
+    bundle = ModelBundle(model, torch.device(DEVICE))
+    batch = next(iter(sel._paths_loader(paths[:cfg["batch"]], include_labels=True,
+                                        labels_as_mask=NUM_CLASSES)))
+    sel._scorer(bundle, 1)(batch)   # warm-up: cuDNN's set-up outside the trace
+    torch.cuda.synchronize()
+    scorer = sel._scorer(bundle, 0)
+    log_dir = root / "trace"
+    meter = Throughput()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reset_counts()
+    t0 = time.perf_counter()
+    with trace(str(log_dir)):
+        meter.start()
+        start.record()
+        maps = scorer(batch)
+        end.record()
+        meter.mark(cfg["batch"], maps)
+    trace_s = time.perf_counter() - t0
+    counts = read_counts()
+    event_s = start.elapsed_time(end) / 1e3
+    files = list(log_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"one trace written: {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    b1 = [e for e in events if e.get("cat") == "kernel"
+          and "upsample4_argmax_kernel" in e.get("name", "")]
+    per_s = meter.items_per_sec
+    print(f"profiling: trace of one canonical dropout batch: {len(b1)} B1 kernels named "
+          f"in {files[0].name} ({files[0].stat().st_size / 2**20:.1f} MiB, "
+          f"{len(events)} events); launches {json.dumps(counts)}; Throughput "
+          f"{meter.summary('images')} vs CUDA events {cfg['batch'] / event_s:.2f} images/s "
+          f"({event_s * 1e3:.3f} ms); traced region {trace_s:.3f} s", flush=True)
+    check(counts == {"upsample4_argmax": constants.MC_STEPS,
+                     "tconv2x_argmax_parity_major": 0},
+          f"B1 launched once per MC step in the traced batch: {counts}")
+    check(len(b1) == constants.MC_STEPS, f"the trace names B1's kernel 20 times: {len(b1)}")
+    check(abs(per_s * event_s / cfg["batch"] - 1) <= 0.10,
+          "Throughput agrees with the CUDA events within 10%")
+    check(tuple(maps.shape) == (cfg["batch"], cfg["crop"], cfg["crop"])
+          and bool(torch.isfinite(maps).all()), "the traced batch's maps are finite")
+    return {"counts": counts, "trace_b1_kernels": len(b1), "events": len(events),
+            "throughput_images_per_s": per_s, "event_images_per_s": cfg["batch"] / event_s,
+            "trace_bytes": files[0].stat().st_size, "traced_s": trace_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2969,6 +3462,28 @@ def main(argv=None) -> int:
             check(zoo[name]["counts"] == want,
                   f"launches in the {name} phase: {zoo[name]['counts']}, "
                   f"expected {want}")
+        # slice 9: checkpoint replay, the SEM trainer and the tools; no phase
+        # launches B1 or B2 but the profiling phase's traced batch (20 MC
+        # steps, after a warm-up batch)
+        slice9 = [("visualize", lambda: visualize_phase(torch, args.seed, tmp)),
+                  ("eval_series", lambda: eval_series_phase(torch, args.seed, tmp)),
+                  ("unet_train", lambda: unet_train_phase(torch, args.seed, tmp)),
+                  ("convert", lambda: convert_phase(torch, args.seed, tmp)),
+                  ("compare_selections", lambda: compare_selections_phase(tmp)),
+                  ("profiling", lambda: profiling_phase(torch, args.seed, store, paths,
+                                                        tmp))]
+        replay = {}
+        for name, phase in slice9:
+            t0 = time.perf_counter()
+            reset_counts()
+            replay[name] = phase()
+            replay[name]["counts"] = read_counts()
+            phase_s[name] = time.perf_counter() - t0
+            want = {"upsample4_argmax": constants.MC_STEPS * (name == "profiling"),
+                    "tconv2x_argmax_parity_major": 0}
+            check(replay[name]["counts"] == want,
+                  f"launches in the {name} phase: {replay[name]['counts']}, "
+                  f"expected {want}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -3006,6 +3521,8 @@ def main(argv=None) -> int:
             paths_result["deeplab_resnet50"]["counts"][row["name"]])
         row["zoo_training_launches"] = {name: r["counts"][row["name"]]
                                         for name, r in zoo.items()}
+        row["slice9_launches"] = {name: r["counts"][row["name"]]
+                                  for name, r in replay.items()}
     check(paths_result["deeplab_resnet50"]["launches"] == 80,
           "B1 launched 80 times in the ResNet-50 variance query")
 
@@ -3019,7 +3536,7 @@ def main(argv=None) -> int:
              "training": training, "al_round": al_round, "region": region,
              "ceal": ceal, "noise": noise, "representative": representative,
              "greedy": greedy, "oracle": oracle, "accuracy": accuracy,
-             "zoo": zoo},
+             "zoo": zoo, "replay": replay},
             indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}

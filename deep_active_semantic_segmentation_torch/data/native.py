@@ -10,12 +10,16 @@ plain version (``transforms.imresize_plain``), which the tests call
 explicitly.
 
 The library is built at first use with ``g++ -O3 -march=native -fopenmp
--shared -fPIC`` into this package's git-ignored ``_build/``, under a name
-that carries a hash of the source and the flags (as ``cuda_build`` names
-the CUDA kernels), so an edited source is never served a stale build. The
-build writes a temporary name and renames it into place under a file lock,
-so processes that start together build once. A failed build raises with
-the compiler's message: there is no fallback and no switch.
+-shared -fPIC`` into this package's git-ignored ``_build/``, as
+``libdass_native-<tag>.so``: ``tag`` is the first 12 hex digits of the
+SHA-1 of the source, the flags and ``host_cpu()``, what ``-march=native``
+resolves to on this host (g++'s target options under it: the ``-march=``
+and ``-mtune=`` values and every ``-m`` feature, enabled or not). So an
+edited source is never served a stale build, and a ``_build/`` carried to
+a machine with another instruction set is rebuilt there, never loaded.
+The build writes a temporary name and renames it into place under a file
+lock, so processes that start together build once. A failed build raises
+with the compiler's message: there is no fallback and no switch.
 
 ``set_num_threads`` sets the OpenMP threads of the calls made after it,
 in whatever thread makes them (the count is applied before every call,
@@ -46,11 +50,28 @@ FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _num_threads: Optional[int] = None
+_host_cpu: Optional[str] = None
+
+
+def host_cpu() -> str:
+    """What ``-march=native`` resolves to on this host: the output of
+    ``g++ -march=native -Q --help=target``, read once per process (it
+    costs a subprocess). Raises ``RuntimeError`` when g++ fails."""
+    global _host_cpu
+    if _host_cpu is None:
+        proc = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ -march=native -Q --help=target exited "
+                               f"{proc.returncode}:\n{proc.stderr}")
+        _host_cpu = proc.stdout
+    return _host_cpu
 
 
 def library_path() -> Path:
-    """``BUILD_DIR/libdass_native-<hash of SOURCE and FLAGS>.so``."""
-    tag = hashlib.sha1(SOURCE.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
+    """``BUILD_DIR/libdass_native-<hash of SOURCE, FLAGS and host_cpu()>.so``."""
+    tag = hashlib.sha1(SOURCE.read_bytes() + " ".join(FLAGS).encode()
+                       + host_cpu().encode()).hexdigest()[:12]
     return BUILD_DIR / f"libdass_native-{tag}.so"
 
 

@@ -32,10 +32,13 @@ from deep_active_semantic_segmentation_torch.selection.kernels import (
     normalize_on_device)
 
 
-def ingest(batch):
+def ingest(batch, norm=None):
     """Device half of the uint8 train/eval wire: (NCHW f32 image, long
-    labels)."""
-    return normalize_on_device(batch["image"]), batch["label"].long()
+    labels). ``norm``: the (mean, std) the image is normalized with, one
+    value per channel; None is ImageNet's (SEM passes its own,
+    ``data/sem.MEAN`` and ``STD``)."""
+    return (normalize_on_device(batch["image"], *(norm or ())),
+            batch["label"].long())
 
 
 def _autocast_bf16(compute_dtype: str, remat: bool) -> bool:
@@ -53,7 +56,7 @@ def _autocast_bf16(compute_dtype: str, remat: bool) -> bool:
 def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
                     compute_dtype: str = "float32",
                     generator: Optional[torch.Generator] = None,
-                    remat: bool = False) -> Callable:
+                    remat: bool = False, norm=None) -> Callable:
     """``step(batch, step_index, total_iters=None, iters_per_epoch=None)
     -> {'loss': 0-d device tensor, 'lr': float}``: one forward and
     backward, then the optimizer step at ``schedule(step_index, ...)``.
@@ -65,12 +68,12 @@ def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
     ``remat`` is refused: ``torch.utils.checkpoint`` restores the default
     generators' state for its recompute, not an explicit dropout
     generator's, so the recomputed forward would draw other masks and the
-    gradients would be wrong."""
+    gradients would be wrong. ``norm``: as in ``ingest``."""
     bf16 = _autocast_bf16(compute_dtype, remat)
 
     def step(batch, step_index: int, total_iters: Optional[int] = None,
              iters_per_epoch: Optional[int] = None):
-        image, label = ingest(batch)
+        image, label = ingest(batch, norm)
         with torch.autocast(image.device.type, dtype=torch.bfloat16,
                             enabled=bf16):
             out = model(image, use_dropout=generator is not None,
@@ -163,17 +166,18 @@ def make_dual_eval_step(model, num_classes: int, seg_loss_fn: Callable,
     return step
 
 
-def make_eval_step(model, num_classes: int, loss_fn: Callable) -> Callable:
+def make_eval_step(model, num_classes: int, loss_fn: Callable,
+                   norm=None) -> Callable:
     """``step(batch, nvalid) -> {'loss', 'confusion', 'pred'}`` in eval mode
     without gradients. ``loss_fn`` is built with ``batch_average=False``;
     the loss divides by the true ``nvalid`` instead (the reference's
     partial-batch average), so padded 255-labelled duplicates change
-    nothing."""
+    nothing. ``norm``: as in ``ingest``."""
 
     @torch.no_grad()
     def step(batch, nvalid: int):
         model.eval()
-        image, label = ingest(batch)
+        image, label = ingest(batch, norm)
         out = model(image)
         pred = out.argmax(dim=1)
         return {"loss": loss_fn(out, label) / nvalid,

@@ -36,15 +36,24 @@ _NORM_MEAN = (0.485, 0.456, 0.406)
 _NORM_STD = (0.229, 0.224, 0.225)
 
 
-def normalize_on_device(images: torch.Tensor) -> torch.Tensor:
+def normalize_on_device(images: torch.Tensor, mean=_NORM_MEAN,
+                        std=_NORM_STD) -> torch.Tensor:
     """NHWC uint8 wire -> NCHW f32 network input: /255, minus mean, over
-    std, the host Normalize math in f32 elementwise ops. Float inputs are
-    taken as already normalized and only change layout."""
+    std (one value per channel; ImageNet's by default), the host Normalize
+    math in f32 elementwise ops, bit for bit on the card too: every
+    divisor is a device tensor, since CUDA turns a division by a host
+    scalar into a multiplication by its reciprocal, up to 1 ulp off.
+    Float inputs are taken as already normalized and only change
+    layout."""
     if images.dtype == torch.uint8:
-        x = images.to(torch.float32) / 255.0
-        mean = torch.tensor(_NORM_MEAN, dtype=torch.float32, device=x.device)
-        std = torch.tensor(_NORM_STD, dtype=torch.float32, device=x.device)
-        images = (x - mean) / std
+        c = images.shape[-1]
+        if len(mean) != c or len(std) != c:
+            raise ValueError(f"{len(mean)}-channel mean and {len(std)}-channel "
+                             f"std for {c}-channel images")
+        consts = torch.tensor((255.0, *mean, *std), dtype=torch.float32,
+                              device=images.device)
+        x = images.to(torch.float32) / consts[0]
+        images = (x - consts[1:1 + c]) / consts[1 + c:]
     return images.permute(0, 3, 1, 2).contiguous()
 
 

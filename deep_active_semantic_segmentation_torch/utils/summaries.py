@@ -1,7 +1,8 @@
 """Tensorboard summaries (parity: the JAX package's utils/summaries.py,
 itself the reference utils/summaries.py:11-67): the same writer factory,
 scalar tag schema, Image / Prediction / Groundtruth grids and the
-two-headed model's accuracy panel.
+two-headed model's accuracy panel, and the per-image PNG dump of
+``visualize_torch.py``.
 tensorboardX is optional: without it a JSONL writer keeps the scalar
 schema (tag, value, step), so a run on a machine without it still logs
 everything. Images are NHWC uint8 wire batches; targets and predictions
@@ -14,6 +15,7 @@ import json
 import os
 
 import numpy as np
+from PIL import Image
 
 from deep_active_semantic_segmentation_torch.data.colormaps import (
     map_segmentation_to_colors, map_segmentations_to_colors)
@@ -102,3 +104,23 @@ class TensorboardSummary:
             writer.add_image(f"{name}/accuracy_predictions_{k}",
                              np.transpose(np.concatenate([top, bottom], axis=0),
                                           (2, 0, 1)), global_step)
+
+    @staticmethod
+    def visualize_images_to_folder(output_folder, batch_idx, image, target,
+                                   output, dataset):
+        """One PNG triple per sample (the JAX package's summaries.py:123-141,
+        reference summaries.py:60-67): ``img_``, ``tgt_`` and
+        ``prd_{batch_idx:04d}_{i:02d}.png`` in ``output_folder``, byte-equal
+        to the JAX package's for the same pixels. image (B,H,W,3) uint8;
+        target and output (B,H,W) class maps."""
+        os.makedirs(output_folder, exist_ok=True)
+        image, target, output = _host(image), _host(target), _host(output)
+        outpath = os.path.join(output_folder, "{0}_{1:04d}_{2:02d}.png")
+        for i in range(image.shape[0]):
+            # the JAX package's arithmetic: /255 in f32, then *255 truncated
+            rgb = (image[i].astype(np.float32) / 255.0 * 255).astype(np.uint8)
+            Image.fromarray(rgb).save(outpath.format("img", batch_idx, i))
+            for prefix, plane in (("tgt", target[i]), ("prd", output[i])):
+                colored = map_segmentation_to_colors(plane.astype(np.uint8), dataset)
+                Image.fromarray((colored * 255).astype(np.uint8)).save(
+                    outpath.format(prefix, batch_idx, i))

@@ -404,3 +404,99 @@ def test_zoo_forward_on_the_card_equals_the_cpu(cuda_device, arch, backbone, sid
         torch.backends.cudnn.allow_tf32 = saved
     assert got.shape == want.shape == (2, 19, side, side)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_sem_batches_reach_the_card_as_on_the_cpu(cuda_device, tmp_path):
+    """SEM's uint8 grayscale wire onto the card: the normalized network
+    input (SEM's mean and std on the device) equal to the CPU's bit for
+    bit, labels 0/1 with the padded row at 255."""
+    import random
+
+    import numpy as np
+    from PIL import Image
+
+    from deep_active_semantic_segmentation_torch.data import sem
+    from deep_active_semantic_segmentation_torch.data.loader import Loader
+    from deep_active_semantic_segmentation_torch.parallel.steps import ingest
+
+    rng = np.random.RandomState(0)
+    for sub in ("images", "masks"):
+        (tmp_path / "sem" / "train" / sub).mkdir(parents=True)
+    for i in range(3):
+        Image.fromarray(rng.randint(0, 256, (600, 700), dtype=np.uint8)).save(
+            tmp_path / "sem" / "train" / "images" / f"{i}.png")
+        Image.fromarray((rng.rand(600, 700) > 0.5).astype(np.uint8) * 255).save(
+            tmp_path / "sem" / "train" / "masks" / f"{i}.png")
+    batches = {}
+    for device in ("cpu", cuda_device):
+        pool = sem.SEMData(512, "train", dataset_root=str(tmp_path), rng=random.Random(3))
+        loader = Loader(pool, 2, shuffle=True, seed=0, device=device)
+        batches[str(device)] = [ingest(b, (sem.MEAN, sem.STD))
+                                for b in loader.device_batches()]
+    assert len(batches["cuda"]) == 2
+    for (ci, cl), (gi, gl) in zip(batches["cpu"], batches["cuda"], strict=True):
+        assert gi.device.type == "cuda" and tuple(gi.shape) == (2, 1, 512, 512)
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gl.cpu(), cl)
+    assert set(batches["cpu"][0][1].unique().tolist()) == {0, 1}
+    assert (batches["cpu"][1][1][1] == 255).all()
+
+
+@pytest.mark.cuda
+def test_evaluate_checkpoint_on_the_card_equals_the_cpu(cuda_device, tmp_path, monkeypatch):
+    """One checkpoint replayed by ``evaluate_checkpoint`` on the card and
+    on the CPU (TF32 off): the same confusion matrix, the losses within
+    1e-5 relative."""
+    import numpy as np
+
+    from deep_active_semantic_segmentation_torch.config import parse_cli
+    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.engine import evaluation
+    from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import save_checkpoint
+
+    rng = np.random.RandomState(1)
+    city = tmp_path / "cityscapes"
+    keys = {}
+    for split, n in (("train", 4), ("val", 3)):
+        store = DirectoryStore(str(city / split), readonly=False)
+        keys[split] = [f"/leftImg8bit/{split}/c/img_{i}.png".encode() for i in range(n)]
+        for key in keys[split]:
+            lab = rng.randint(0, 19, (90, 130)).astype(np.uint8)
+            lab[:10] = 255
+            store.put(key, np.dstack((rng.randint(0, 256, (90, 130, 3), dtype=np.uint8),
+                                      lab)))
+        store.finalize(keys[split])
+    (city / "seed_sets").mkdir()
+    (city / "seed_sets" / "set_0.txt").write_text(
+        "".join(k.decode() + "\n" for k in keys["train"][:2]))
+    ckpt = str(tmp_path / "best.ckpt")
+    model = build_model("deeplab", 19, mc_dropout=True, device="cpu",
+                        generator=torch.Generator().manual_seed(4))
+    save_checkpoint(ckpt, model, None, 3, 0.5)
+    cfg = parse_cli(["--dataset", "active_cityscapes_image", "--backbone", "mobilenet",
+                     "--base-size", "65", "--crop-size", "65", "--batch-size", "2",
+                     "--use-balanced-weights", "--seed", "1"]).finalize()
+    made = []
+    real = evaluation.Evaluator
+    monkeypatch.setattr(evaluation, "Evaluator", lambda *a: made.append(real(*a)) or made[-1])
+    results = {}
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for device in ("cpu", cuda_device):
+            _, train_loader, val_loader, _, nclass = make_dataloader(
+                cfg.dataset, 65, 65, 2, init_set="set_0.txt", dataset_root=str(tmp_path),
+                seed=1, device=device)
+            trainer = Trainer(cfg, train_loader, val_loader, nclass, device=device)
+            trainer.initialize()
+            results[str(device)] = evaluation.evaluate_checkpoint(trainer, ckpt)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert made[1].device.type == "cuda" and made[1].confusion.sum() > 0.8 * 3 * 65 * 65
+    np.testing.assert_array_equal(made[1].confusion, made[0].confusion)
+    assert results["cuda"]["mIoU"] == results["cpu"]["mIoU"]
+    assert results["cuda"]["epoch"] == 3
+    assert abs(results["cuda"]["loss"] - results["cpu"]["loss"]) <= 1e-5 * results["cpu"]["loss"]

@@ -128,6 +128,30 @@ def test_builds_once_across_processes_and_names_the_library_by_hash(tmp_path):
     assert pt_native.library_path().name.startswith("libdass_native-")
 
 
+def test_the_library_name_carries_the_host_cpu(tmp_path, monkeypatch):
+    """A library built for one CPU is never loaded on another: with the
+    host's CPU identity patched to another value, ``library_path()``
+    changes, and loading builds that name instead of opening the file
+    under the old one (here not a library at all, so opening it would
+    raise)."""
+    monkeypatch.setattr(pt_native, "BUILD_DIR", tmp_path)
+    here = pt_native.library_path()
+    assert pt_native.library_path() == here   # the identity is read once
+    assert "-march=" in pt_native.host_cpu()
+    here.write_bytes(b"built for another CPU")
+    monkeypatch.setattr(pt_native, "_host_cpu",
+                        pt_native.host_cpu().replace("-march=", "-march=other"))
+    other = pt_native.library_path()
+    assert other != here and other.name.startswith("libdass_native-")
+    monkeypatch.setattr(pt_native, "_lib", None)
+    lib = pt_native.get_lib()
+    assert lib._name == str(other) and other.exists()
+    assert here.read_bytes() == b"built for another CPU"
+    x = np.arange(48, dtype=np.uint8).reshape(4, 4, 3)
+    np.testing.assert_array_equal(pt_native.resize_u8(x, 2, 2),
+                                  pt_tr.imresize_plain(x, (2, 2)))
+
+
 def test_a_failed_build_raises_with_the_compiler_message(tmp_path, monkeypatch):
     src = tmp_path / "broken.cpp"
     src.write_text("extern \"C\" void resize_bilinear_u8_window( {\n")
