@@ -50,16 +50,15 @@ def _make_store(out_path: str, use_lmdb: bool) -> DirectoryStore:
     return DirectoryStore(out_path, readonly=False)
 
 
-def emit_seed_set(keys, out_path: str, count: int, seed: int,
-                  set_index: int = 0) -> str:
-    """Write ``seed_sets/set_{set_index}.txt`` beside the store at
+def emit_seed_set(keys, out_path: str, count: int, seed: int) -> str:
+    """Write ``seed_sets/set_0.txt`` beside the store at
     ``out_path``: ``count`` of ``keys`` sampled from ``seed`` (the
     reference ships such sets, drawn by create_initial_set.py:9 with an
     unseeded ``random.sample``). Returns its path."""
     sel = create_initial_set([k.decode() for k in keys],
                              count=min(count, len(keys)), seed=seed)
     path = os.path.join(os.path.dirname(os.path.normpath(out_path)),
-                        "seed_sets", f"set_{set_index}.txt")
+                        "seed_sets", "set_0.txt")
     write_seed_set(path, sel)
     return path
 

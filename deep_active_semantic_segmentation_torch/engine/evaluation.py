@@ -23,6 +23,25 @@ from deep_active_semantic_segmentation_torch.utils.summaries import (
     TensorboardSummary)
 
 
+def eval_trainer(cfg, dataset_root: Optional[str], device,
+                 dual_head: bool = False):
+    """The initialized Trainer that visualize_torch.py and
+    eval_series_torch.py replay checkpoints in: ``cfg``'s loaders on
+    ``device``, the accuracy predictor's two heads when ``dual_head``."""
+    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+    from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
+
+    _, train_loader, val_loader, _, nclass = make_dataloader(
+        cfg.dataset, cfg.base_size, cfg.crop_size, cfg.batch_size,
+        cfg.workers, cfg.overfit, init_set=cfg.seed_set,
+        memory_hog=cfg.memory_hog, dataset_root=dataset_root, seed=cfg.seed,
+        device=device)
+    trainer = Trainer(cfg, train_loader, val_loader, nclass, device=device,
+                      dual_head=dual_head)
+    trainer.initialize()
+    return trainer
+
+
 def evaluate_checkpoint(trainer, ckpt_path: str,
                         vis_folder: Optional[str] = None) -> dict:
     """Load ``ckpt_path`` into ``trainer.model`` and run the full val split.
@@ -79,8 +98,7 @@ def discover_run_checkpoints(experiment_dir: str,
 
 
 def evaluate_checkpoint_series(trainer, experiment_dir: str,
-                               ckpt_name: str = "best.ckpt",
-                               write_table: bool = True):
+                               ckpt_name: str = "best.ckpt"):
     """Re-validate every AL round's checkpoint; returns {labeled count:
     metrics}, prints one row per round and writes the rows to
     ``validation_mIoUs.txt`` beside the runs, in the JAX package's
@@ -99,7 +117,7 @@ def evaluate_checkpoint_series(trainer, experiment_dir: str,
                f"fwIoU: {metrics['FWIoU']}{extras}")
         print(row)
         rows.append(row)
-    if write_table and rows:
+    if rows:
         with open(os.path.join(experiment_dir, "validation_mIoUs.txt"), "w") as f:
             f.write("\n".join(rows) + "\n")
     return series

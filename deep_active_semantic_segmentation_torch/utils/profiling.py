@@ -1,7 +1,7 @@
 """Throughput counters and profiler traces (the counterparts of the JAX
 package's utils/profiling.py:24-75).
 
-* ``Throughput``: an items/s (and per-card) counter whose ``mark`` waits
+* ``Throughput``: an items/s counter whose ``mark`` waits
   for the work it counts: a CUDA tensor handed to it is synchronized on
   (PyTorch returns before the card has finished), so the clock reads
   completion, not enqueue.
@@ -22,8 +22,7 @@ import torch
 
 
 class Throughput:
-    def __init__(self, num_chips: int = 1):
-        self.num_chips = num_chips
+    def __init__(self):
         self.reset()
 
     def reset(self):
@@ -50,13 +49,8 @@ class Throughput:
     def items_per_sec(self) -> float:
         return self._count / self._elapsed if self._elapsed else 0.0
 
-    @property
-    def items_per_sec_per_chip(self) -> float:
-        return self.items_per_sec / self.num_chips
-
     def summary(self, unit: str = "imgs") -> str:
-        return (f"{self.items_per_sec:.2f} {unit}/s "
-                f"({self.items_per_sec_per_chip:.2f} {unit}/s/chip)")
+        return f"{self.items_per_sec:.2f} {unit}/s"
 
 
 @contextlib.contextmanager

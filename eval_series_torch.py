@@ -45,25 +45,15 @@ def main(argv=None, dataset_root=None, runs_root=None, device=None):
     device = resolve_device(device)
 
     from deep_active_semantic_segmentation_torch import constants
-    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
     from deep_active_semantic_segmentation_torch.engine.evaluation import (
-        evaluate_checkpoint_series)
-    from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
+        eval_trainer, evaluate_checkpoint_series)
 
     experiment_dir = ns.experiment_dir or os.path.join(
         runs_root or constants.RUNS, cfg.dataset, cfg.checkname)
     if not os.path.isdir(experiment_dir):
         raise FileNotFoundError(experiment_dir)
 
-    _, train_loader, val_loader, _, nclass = make_dataloader(
-        cfg.dataset, cfg.base_size, cfg.crop_size, cfg.batch_size,
-        cfg.workers, cfg.overfit, init_set=cfg.seed_set,
-        memory_hog=cfg.memory_hog, dataset_root=dataset_root, seed=cfg.seed,
-        device=device)
-    trainer = Trainer(cfg, train_loader, val_loader, nclass, device=device,
-                      dual_head=ns.dual_head)
-    trainer.initialize()
-
+    trainer = eval_trainer(cfg, dataset_root, device, dual_head=ns.dual_head)
     series = evaluate_checkpoint_series(trainer, experiment_dir,
                                         ckpt_name=ns.ckpt_name)
     if not series:

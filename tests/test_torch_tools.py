@@ -172,14 +172,15 @@ def test_compare_selections_gives_the_jax_results(two_port_runs, tmp_path, capsy
 
 
 def test_throughput_counts_and_trace(tmp_path):
-    t = profiling.Throughput(num_chips=2)
+    t = profiling.Throughput()
     t.mark(4)                     # an unstarted counter: starts the clock
     assert t.items_per_sec == 0.0
     t.mark(8, result=torch.ones(3))
     t.mark(8, result=torch.ones(()))
     assert t._count == 16 and t.items_per_sec > 0
-    assert abs(t.items_per_sec_per_chip - t.items_per_sec / 2) < 1e-9
-    assert "imgs/s" in t.summary() and "/s/chip" in t.summary("images")
+    assert abs(t.items_per_sec - 16 / t._elapsed) < 1e-9
+    assert t.summary() == f"{t.items_per_sec:.2f} imgs/s"
+    assert t.summary("images").endswith(" images/s")
     t.reset()
     assert t.items_per_sec == 0.0
     with profiling.trace(None):   # off: a no-op

@@ -74,14 +74,13 @@ def get_loss_and_accuracy(eval_step, loader):
     return total_acc / batches, total_loss / batches
 
 
-def main(argv=None, dataset_root=None, epochs=2000, crop_size=512,
-         batch_size=2, device=None):
+def main(argv=None, dataset_root=None, device=None):
     """``device``: where training runs, the CUDA card by default (callers
     that mean the CPU say ``device="cpu"``). Returns (model, optimizer)."""
     parser = argparse.ArgumentParser(description="PyTorch SEM UNet training")
-    parser.add_argument("--epochs", type=int, default=epochs)
-    parser.add_argument("--crop-size", type=int, default=crop_size)
-    parser.add_argument("--batch-size", type=int, default=batch_size)
+    parser.add_argument("--epochs", type=int, default=2000)
+    parser.add_argument("--crop-size", type=int, default=512)
+    parser.add_argument("--batch-size", type=int, default=2)
     parser.add_argument("--lr", type=float, default=0.001)
     parser.add_argument("--num-devices", type=int, default=None,
                         help="one card; more than one is ROADMAP A15")

@@ -36,18 +36,10 @@ def main(argv=None, dataset_root=None, device=None):
     device = resolve_device(device)
 
     from deep_active_semantic_segmentation_torch import constants
-    from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
     from deep_active_semantic_segmentation_torch.engine.evaluation import (
-        evaluate_checkpoint)
-    from deep_active_semantic_segmentation_torch.engine.trainer import Trainer
+        eval_trainer, evaluate_checkpoint)
 
-    _, train_loader, val_loader, _, nclass = make_dataloader(
-        cfg.dataset, cfg.base_size, cfg.crop_size, cfg.batch_size,
-        cfg.workers, cfg.overfit, init_set=cfg.seed_set,
-        memory_hog=cfg.memory_hog, dataset_root=dataset_root, seed=cfg.seed,
-        device=device)
-    trainer = Trainer(cfg, train_loader, val_loader, nclass, device=device)
-    trainer.initialize()
+    trainer = eval_trainer(cfg, dataset_root, device)
 
     vis_folder = os.path.join(os.path.dirname(os.path.realpath(ns.checkpoint)),
                               constants.VISUALIZATIONS_FOLDER)
