@@ -30,7 +30,7 @@ import random
 
 from deep_active_semantic_segmentation_torch import resolve_device
 from deep_active_semantic_segmentation_torch.config import (
-    add_common_flags, config_from_args)
+    add_common_flags, config_from_args, refuse_multi_device)
 
 MODES = ("accuracy", "gradient", "uncertain", "uncertain_gradient")
 
@@ -60,7 +60,9 @@ def parse_args(argv=None):
                         choices=["softmax", "argmax"])
     parser.add_argument("--no-end-to-end", action="store_true", default=False)
     parser.add_argument("--symmetry", action="store_true", default=False)
-    return config_from_args(parser.parse_args(argv)).finalize(n_devices=1)
+    args = config_from_args(parser.parse_args(argv))
+    refuse_multi_device(args.num_devices)
+    return args.finalize(n_devices=1)
 
 
 def check_mode(mode: str, dataset: str) -> None:

@@ -136,7 +136,26 @@
    accuracy_eval consumer that replays it (every round N/N); a
    torch.profiler trace (utils/profiling.trace) of one canonical dropout
    batch naming B1's kernel 20 times, Throughput against CUDA events.
-13. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+13. Slice 10, the data-parallel path (parallel/mesh.py, crossreplica.py,
+   the sharded scorer): (a) two ranks sharing the card over gloo (NCCL
+   refuses two ranks on one device; where the machine shows two cards,
+   also one rank per card over NCCL), spawned by parallel.mesh.launch:
+   one DeepLab-ResNet-50 step at 513² on 4 rows per rank (f64 and f32,
+   TF32 off, BN biases drawn off the ReLU kinks) against the one-process
+   step on the same 8 images (PR 8's card-vs-CPU bars; both ranks' tensors,
+   BN buffers included, equal), a bf16 step timed per rank and the
+   gradient all-reduce timed; the canonical MobileNetV2 dropout query (B1)
+   and the ENet query (B2) over the 20 records sharded over the ranks,
+   scores and picks equal to the one-process queries and each rank's
+   launches summing to the one-process count; one 2-rank `variance` round
+   through active_train_torch.main (--num-devices 2, a global batch of 8:
+   selections 10 then 15, best.ckpt without 'module.' keys; the ranks
+   check their labeled pools against each other); dryrun_multichip(2).
+   (b) The NCCL route at world 1: make_mesh(backend="nccl") and one DDP
+   step with cross-replica BN against the plain step (BN frozen: equal
+   tensors; train mode: PR 8's bars). The two-ranks-on-one-card times are
+   the cost of the collectives through the host, not a scaling result.
+14. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -628,7 +647,7 @@ def main_path_phase(torch, seed: int, arch: str, store, paths):
         ModelBundle, get_active_selection_class)
     from deep_active_semantic_segmentation_torch.selection import kernels
     from deep_active_semantic_segmentation_torch.selection.base import (
-        collect_scores, rank_descending)
+        rank_descending)
 
     cfg = PATHS[arch]
     crop, batch_size, kernel = cfg["crop"], cfg["batch"], cfg["kernel"]
@@ -666,10 +685,8 @@ def main_path_phase(torch, seed: int, arch: str, store, paths):
     # the same query's scores (same seed -> same masks): finite, and
     # they rank as the entry point ranked
     scorer = sel._scorer(bundle, 0)
-    scores = collect_scores(
-        sel._paths_loader(paths, include_labels=True,
-                          labels_as_mask=NUM_CLASSES),
-        lambda b: mean_over_pixels(scorer(b)))
+    scores = sel._collect_scores(paths, lambda b: mean_over_pixels(scorer(b)),
+                                 include_labels=True, labels_as_mask=NUM_CLASSES)
     check(len(scores) == len(paths) and bool(np.isfinite(scores).all()),
           "scores are finite, one per image")
     check(rank_descending(scores, list(paths), 5) == top,
@@ -1013,7 +1030,7 @@ def al_round_phase(torch, seed: int, root: Path, paths):
     from deep_active_semantic_segmentation_torch.selection import (
         ModelBundle, get_active_selection_class)
     from deep_active_semantic_segmentation_torch.selection.base import (
-        collect_scores, rank_descending)
+        rank_descending)
     from deep_active_semantic_segmentation_torch.utils.checkpoint import load_checkpoint
 
     cfg = parse_cli(ROUND_ARGV + ["--seed", str(seed), "--checkname", "round"]).finalize()
@@ -1058,9 +1075,8 @@ def al_round_phase(torch, seed: int, root: Path, paths):
     sel_obj = get_active_selection_class("variance", NUM_CLASSES, store,
                                          cfg.crop_size, cfg.batch_size, device=DEVICE)
     scorer = sel_obj._scorer(ModelBundle(model, torch.device(DEVICE)), cfg.seed + 0)
-    scores = collect_scores(sel_obj._paths_loader(remaining, include_labels=True,
-                                                  labels_as_mask=NUM_CLASSES),
-                            lambda b: mean_over_pixels(scorer(b)))
+    scores = sel_obj._collect_scores(remaining, lambda b: mean_over_pixels(scorer(b)),
+                                     include_labels=True, labels_as_mask=NUM_CLASSES)
     check(len(scores) == len(remaining) and bool(np.isfinite(scores).all()),
           "the round's scores are finite")
     check([p.decode() for p in rank_descending(scores, remaining, cfg.active_batch_size)]
@@ -1532,7 +1548,7 @@ def noise_query_phase(torch, seed: int, arch: str, store, paths, modes):
     from deep_active_semantic_segmentation_torch.selection import (
         ModelBundle, get_active_selection_class)
     from deep_active_semantic_segmentation_torch.selection.base import (
-        collect_scores, rank_descending)
+        rank_descending)
 
     cfg = PATHS[arch]
     crop, batch_size, kernel = cfg["crop"], cfg["batch"], cfg["kernel"]
@@ -1571,9 +1587,8 @@ def noise_query_phase(torch, seed: int, arch: str, store, paths, modes):
               f"{arch} {mode}: 5 distinct picks, the same every run")
 
         scorer = sel._scorer(bundle, 0, sweeps)
-        scores = collect_scores(
-            sel._paths_loader(paths, include_labels=True, labels_as_mask=NUM_CLASSES),
-            lambda b: mean_over_pixels(scorer(b)))
+        scores = sel._collect_scores(paths, lambda b: mean_over_pixels(scorer(b)),
+                                     include_labels=True, labels_as_mask=NUM_CLASSES)
         check(len(scores) == len(paths) and bool(np.isfinite(scores).all())
               and rank_descending(scores, list(paths), 5) == tops[0],
               f"{arch} {mode}: finite scores whose top 5 is the pick")
@@ -3347,6 +3362,387 @@ def profiling_phase(torch, seed: int, store, paths, root: Path):
             "trace_bytes": files[0].stat().st_size, "traced_s": trace_s}
 
 
+
+# ------------------------------------------- slice 10: data-parallel ranks
+
+# two ranks: on the driver's one card they share it over gloo (NCCL refuses
+# two ranks on one device), so their times are the cost of the collectives
+# through the host, not a scaling result
+MR_WORLD = 2
+MR_PER_RANK = 4            # the ResNet-50 step's rows per rank (train.py's 4)
+MR_TIMED_STEPS = 3         # timed bf16 steps per rank after the compared one
+MR_BF16_RTOL = 2e-2        # a bf16 loss against the one-process bf16 loss
+MR_JOIN_S = 600            # a spawn's limit
+MR_GROUP_S = 300           # a collective's limit inside the ranks
+# the canonical AL round on 2 ranks: the cut size of the AL-round phase, a
+# global batch of 8 (4 per rank: the scripts' 5 does not divide)
+MR_ROUND_ARGV = ROUND_ARGV + ["--batch-size", str(MR_WORLD * MR_PER_RANK),
+                              "--num-devices", str(MR_WORLD)]
+# train.py's default model at its crop: 9 x 9 label blocks of 57 px
+MR_STEP_BACKBONE, MR_STEP_BLOCKS, MR_STEP_BLOCK = "resnet", 9, 57
+# the queries: (architecture, crop, scoring batch, the kernel its votes use)
+MR_QUERIES = [("deeplab", 513, 5, "upsample4_argmax"),
+              ("enet", 512, 8, "tconv2x_argmax_parity_major")]
+# where two ranks share a card (over gloo)
+MR_SHARED_DEVICE = "cuda:0"
+
+
+def _device_ms(torch, device, fn, iters: int) -> float:
+    """Mean ms of ``fn`` over ``iters`` calls, waiting for the device."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _mr_step(torch, state, batch, dtype: str, device, mesh=None, freeze=False):
+    """One SGD step (lr 0.01, dropout off) of a DeepLab loaded from
+    ``state`` on ``batch`` (this rank's rows with ``mesh``): in bf16 or f32
+    on the uint8 wire, or with f64 weights and the image normalized in
+    f64 (the loss stays f32): (model, step function, the step's loss)."""
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
+        constant_schedule)
+    from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+        convert_cross_replica_bn)
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import make_train_step
+
+    model = build_model("deeplab", NUM_CLASSES, backbone=state["backbone"],
+                        mc_dropout=True, device=device)
+    model.load_state_dict(state["weights"])
+    convert_cross_replica_bn(model.train(), mesh)
+    if freeze:
+        freeze_bn(model)
+    if dtype == "float64":
+        model.double()
+        mean = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float64, device=device)
+        std = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float64, device=device)
+        batch = dict(batch, image=(batch["image"].double() / 255.0 - mean) / std)
+    step = make_train_step(model, build_optimizer("SGD", param_groups(model, "deeplab")),
+                           build_loss("ce", mesh=mesh), constant_schedule(0.01),
+                           compute_dtype="float32" if dtype == "float64" else dtype,
+                           mesh=mesh)
+    return model, step, float(step(batch, 0)["loss"])
+
+
+def _off_the_kinks(torch, model, gen):
+    """``model`` with every BN bias drawn ~0.1 N(0, 1) from ``gen``. At
+    init (bias 0) a channel that is 0 but for rounding-level values puts
+    BN outputs exactly on the ReLU / ReLU6 kink in one BN's arithmetic and
+    1e-17 off it in another's (cuDNN's against the cross-replica BN's f64
+    sums), and the two steps then take different subgradients there
+    (ROADMAP C); the tests' models are drawn so too."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    return model
+
+
+def _state(model) -> dict:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _param_gaps(got: dict, ref: dict):
+    """(largest difference over the model of the largest |weight|, worst
+    tensor's difference of its own largest element)."""
+    floats = [k for k, v in ref.items() if v.is_floating_point()]
+    scale = max(ref[k].abs().max().item() for k in floats)
+    diffs = {k: (got[k] - ref[k]).abs().max().item() for k in floats}
+    return (max(diffs.values()) / scale,
+            max(d / max(ref[k].abs().max().item(), 1e-30) for k, d in diffs.items()))
+
+
+def _mr_query(torch, sel, model, paths, kernel: str, warm):
+    """A variance query through the selector (launch counts set to 0 just
+    before it and read just after), then its scores re-scored: (top 5,
+    scores, counts, seconds)."""
+    from deep_active_semantic_segmentation_torch.ops.entropy import mean_over_pixels
+    from deep_active_semantic_segmentation_torch.selection import ModelBundle
+
+    bundle = ModelBundle(model, sel.device)
+    sel.get_vote_entropy_for_images(bundle, warm, 1, seed=1)   # cuDNN set-up
+    sync = torch.cuda.synchronize if sel.device.type == "cuda" else (lambda: None)
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    top = sel.get_vote_entropy_for_images(bundle, paths, 5, seed=0)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    scorer = sel._scorer(bundle, 0)
+    scores = sel._collect_scores(paths, lambda b: mean_over_pixels(scorer(b)),
+                                 include_labels=True, labels_as_mask=NUM_CLASSES)
+    return top, scores, counts, seconds
+
+
+def multi_rank_worker(mesh, setup_path: str, out_dir: str) -> None:
+    """One rank of the multi-rank phase (``parallel.mesh.launch``): the
+    ResNet-50 steps on its rows (f32 compared, bf16 compared and timed),
+    the gradient all-reduce's time, and the MobileNetV2 and ENet queries
+    sharded over the ranks. Saves ``rank<r>.pt`` in ``out_dir``."""
+    import torch
+
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.selection import (
+        get_active_selection_class)
+
+    setup = torch.load(setup_path, weights_only=False)
+    device = mesh.device
+    per = setup["image"].shape[0] // mesh.world
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    batch = {k: torch.from_numpy(setup[k][rows]).to(device) for k in ("image", "label")}
+    out = {"rank": mesh.rank, "device": str(device)}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dtype in ("float64", "float32"):
+            model, _, out[f"{dtype}_loss"] = _mr_step(torch, setup["resnet"], batch,
+                                                      dtype, device, mesh)
+            out[f"{dtype}_state"] = _state(model)
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    model, step, out["bf16_loss"] = _mr_step(torch, setup["resnet"], batch,
+                                             "bfloat16", device, mesh)
+    it = iter(range(1, 1 + MR_TIMED_STEPS))
+    out["bf16_step_ms"] = _device_ms(torch, device, lambda: step(batch, next(it)),
+                                     MR_TIMED_STEPS)
+    flat = torch.zeros(sum(p.numel() for p in model.parameters()), device=device)
+    mesh.all_reduce(flat)
+    out["allreduce_ms"] = _device_ms(torch, device, lambda: mesh.all_reduce(flat), 3)
+    out["allreduce_bytes"] = flat.numel() * 4
+    del model, step, flat
+    store = DirectoryStore(setup["store"])
+    paths = setup["paths"]
+    for arch, crop, batch_size, kernel in setup["queries"]:
+        model = build_model(arch, NUM_CLASSES, backbone="mobilenet", mc_dropout=True,
+                            device=device)
+        model.load_state_dict(setup[arch])
+        sel = get_active_selection_class("variance", NUM_CLASSES, store, crop,
+                                         batch_size, mesh=mesh)
+        out[arch] = dict(zip(("top", "scores", "counts", "seconds"), _mr_query(
+            torch, sel, model.eval(), paths, kernel,
+            paths[:mesh.world * batch_size])))
+    torch.save(out, str(Path(out_dir) / f"rank{mesh.rank}.pt"))
+
+
+def multi_rank_phase(torch, seed: int, root: Path, store_root: Path, paths):
+    """Slice 10: the data-parallel path. (a) Two ranks sharing the card over
+    gloo (and, where the machine shows two cards, one rank per card over
+    NCCL): the ResNet-50 step on 4 rows per rank against the one-process
+    step on the same 8 images, the canonical MobileNetV2 and the ENet
+    dropout queries sharded over the ranks against the one-process
+    queries, one 2-rank `variance` round through active_train_torch.main,
+    and dryrun_multichip(2). (b) The NCCL route at world 1: make_mesh with
+    NCCL, one DDP step with cross-replica BN against the plain step."""
+    import active_train_torch
+    from deep_active_semantic_segmentation_torch import constants
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.parallel import mesh as pt_mesh
+    from deep_active_semantic_segmentation_torch.parallel.dryrun import (
+        dryrun_multichip)
+    from deep_active_semantic_segmentation_torch.selection import (
+        get_active_selection_class)
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed)
+    n = MR_WORLD * MR_PER_RANK
+    blocks, block = MR_STEP_BLOCKS, MR_STEP_BLOCK
+    label = np.kron(rng.randint(0, NUM_CLASSES, (n, blocks, blocks)),
+                    np.ones((1, block, block), np.int64)).astype(np.uint8)
+    label[:, :rng.randint(block // 3, block)] = 255
+    image = rng.randint(0, 256, label.shape + (3,), dtype=np.uint8)
+    setup = {"image": image, "label": label, "store": str(store_root),
+             "paths": paths,
+             "queries": MR_QUERIES}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    resnet = _off_the_kinks(torch, build_model(
+        "deeplab", NUM_CLASSES, backbone=MR_STEP_BACKBONE, mc_dropout=True,
+        device=dev, generator=gen), gen)
+    setup["resnet"] = {"backbone": MR_STEP_BACKBONE, "weights": {
+        k: v.cpu() for k, v in resnet.state_dict().items()}}
+    del resnet
+    for arch in ("deeplab", "enet"):
+        setup[arch] = _state(_off_the_kinks(torch, build_model(
+            arch, NUM_CLASSES, backbone="mobilenet", mc_dropout=True, device=dev,
+            generator=gen), gen))
+    out = {}
+
+    # the one-process references on the same card
+    batch = {"image": torch.from_numpy(image).to(dev),
+             "label": torch.from_numpy(label).to(dev)}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    ref = {}
+    try:
+        for dtype in ("float64", "float32"):
+            model, _, loss = _mr_step(torch, setup["resnet"], batch, dtype, dev)
+            ref[dtype] = (loss, _state(model))
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    model, step, ref_bf16 = _mr_step(torch, setup["resnet"], batch, "bfloat16", dev)
+    it = iter(range(1, 1 + MR_TIMED_STEPS))
+    one_ms = _device_ms(torch, dev, lambda: step(batch, next(it)), MR_TIMED_STEPS)
+    del model, step, batch
+    store = DirectoryStore(str(store_root))
+    ref_queries = {}
+    for arch, crop, batch_size, kernel in setup["queries"]:
+        model = build_model(arch, NUM_CLASSES, backbone="mobilenet", mc_dropout=True,
+                            device=dev)
+        model.load_state_dict(setup[arch])
+        sel = get_active_selection_class("variance", NUM_CLASSES, store, crop,
+                                         batch_size, device=DEVICE)
+        ref_queries[arch] = dict(zip(("top", "scores", "counts", "seconds"), _mr_query(
+            torch, sel, model.eval(), paths, kernel, paths[:MR_WORLD * batch_size])))
+        del model
+    torch.cuda.empty_cache()
+    out["one_process"] = {"float64_loss": ref["float64"][0],
+                          "float32_loss": ref["float32"][0], "bf16_loss": ref_bf16,
+                          "bf16_step_ms": one_ms,
+                          "queries": {a: {k: v for k, v in q.items() if k != "scores"}
+                                      for a, q in ref_queries.items()}}
+    setup_path = root / "multi_rank_setup.pt"
+    torch.save(setup, str(setup_path))
+    routes = [("gloo", MR_SHARED_DEVICE)]
+    if torch.cuda.device_count() >= MR_WORLD:
+        routes.append(("nccl", None))
+    for backend, device in routes:
+        out_dir = root / f"multi_rank_{backend}"
+        out_dir.mkdir()
+        t0 = time.perf_counter()
+        pt_mesh.launch(multi_rank_worker, (str(setup_path), str(out_dir)),
+                       num_devices=MR_WORLD, device=device, backend=backend,
+                       timeout=MR_GROUP_S, join_timeout=MR_JOIN_S)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(str(out_dir / f"rank{r}.pt"), weights_only=False)
+                 for r in range(MR_WORLD)]
+        route = out[f"{backend}_ranks"] = {"wall_s": wall, "ranks": []}
+        gaps = {}
+        for dtype in ("float64", "float32"):
+            loss, state = ref[dtype]
+            gaps[dtype] = (abs(ranks[0][f"{dtype}_loss"] - loss) / abs(loss),
+                           *_param_gaps(ranks[0][f"{dtype}_state"], state))
+            same = all(torch.equal(ranks[0][f"{dtype}_state"][k],
+                                   ranks[1][f"{dtype}_state"][k]) for k in state)
+            print(f"multi-rank ({backend}, {MR_WORLD} ranks on "
+                  f"{'one card: collectives through the host, not scaling' if device else 'one card each'}): DeepLab-"
+                  f"{MR_STEP_BACKBONE} {dtype} step, train-mode BN, on {MR_PER_RANK} rows "
+                  f"per rank vs one process on {n}: loss rel {gaps[dtype][0]:.2e}; "
+                  f"parameters {gaps[dtype][1]:.2e} of the largest weight, worst "
+                  f"tensor {gaps[dtype][2]:.2e} of its own; ranks' tensors (BN buffers "
+                  f"included) equal: {same}", flush=True)
+            check(same, f"{backend} {dtype}: both ranks hold the same weights and "
+                        "BN buffers")
+            check(gaps[dtype][0] <= CPU_LOSS_RTOL,
+                  f"{backend}: the 2-rank {dtype} loss equals one process's")
+        # PR 8's bars: f32 over the model of its largest weight, f64 per tensor
+        check(gaps["float32"][1] <= CPU_PARAM_RTOL and gaps["float64"][2] <= CPU_PARAM_RTOL,
+              f"{backend}: the 2-rank updated parameters equal one process's")
+        route["gaps"] = gaps
+        bf16_rel = abs(ranks[0]["bf16_loss"] - ref_bf16) / abs(ref_bf16)
+        print(f"  bf16 loss rel {bf16_rel:.2e} (bar {MR_BF16_RTOL})", flush=True)
+        check(ranks[0]["bf16_loss"] == ranks[1]["bf16_loss"] and bf16_rel <= MR_BF16_RTOL,
+              f"{backend}: the bf16 loss is the global batch's on both ranks")
+        for r in ranks:
+            route["ranks"].append({k: v for k, v in r.items() if not k.endswith("_state")})
+            print(f"  rank {r['rank']} ({r['device']}): bf16 step "
+                  f"{r['bf16_step_ms']:.1f} ms (one process on {n} images: {one_ms:.1f} ms);"
+                  f" gradient all-reduce {r['allreduce_ms']:.1f} ms for "
+                  f"{r['allreduce_bytes'] / 2**20:.1f} MiB", flush=True)
+        for arch, _, _, kernel in setup["queries"]:
+            one = ref_queries[arch]
+            counts = [r[arch]["counts"][kernel] for r in ranks]
+            rate = len(paths) / max(r[arch]["seconds"] for r in ranks)
+            print(f"  {arch} query over {len(paths)} records: {rate:.2f} images/s on "
+                  f"{MR_WORLD} ranks (one process: {len(paths) / one['seconds']:.2f}); "
+                  f"{kernel} launches per rank {counts} (one process "
+                  f"{one['counts'][kernel]}); picks equal: "
+                  f"{all(r[arch]['top'] == one['top'] for r in ranks)}", flush=True)
+            check(all(r[arch]["top"] == one["top"] and r[arch]["scores"] == one["scores"]
+                      for r in ranks),
+                  f"{backend}: the {arch} query's scores and picks equal one process's")
+            check(sum(counts) == one["counts"][kernel] and all(c > 0 for c in counts),
+                  f"{backend}: {kernel} launches per rank {counts} sum to "
+                  f"{one['counts'][kernel]}")
+            route[f"{arch}_query_images_per_s"] = rate
+            route[f"{arch}_launches_per_rank"] = counts
+
+    # one 2-rank variance round through the driver, ranks sharing the card
+    runs = root / "runs_multi_rank"
+    argv = MR_ROUND_ARGV + ["--seed", str(seed), "--checkname", "round_2ranks"]
+    t0 = time.perf_counter()
+    active_train_torch.main(argv, device=MR_SHARED_DEVICE, backend="gloo",
+                            dataset_root=str(root), runs_root=str(runs))
+    round_s = time.perf_counter() - t0
+    exp = runs / "active_cityscapes_image" / "round_2ranks"
+    run_dirs = sorted(d for d in exp.iterdir() if d.name.startswith("run_"))
+    lines = [len((d / "selections.txt").read_text().splitlines()) for d in run_dirs]
+    keys = torch.load(str(run_dirs[0] / "best.ckpt"), map_location="cpu",
+                      weights_only=True)["state_dict"].keys()
+    print(f"2-rank variance round through active_train_torch.main: {round_s:.3f} s; "
+          f"selections {lines}; best.ckpt keys with 'module.': "
+          f"{sum(k.startswith('module.') for k in keys)}", flush=True)
+    check(lines == [SEED_SET, SEED_SET + 5], f"the 2-rank round's selections {lines}")
+    check(not any(k.startswith("module.") for k in keys),
+          "the 2-rank best.ckpt keeps the reference key names")
+    check(len(list(exp.glob("run_*/selections.txt"))) == len(run_dirs),
+          "one selections.txt per round")
+    out["round"] = {"seconds": round_s, "selections": lines}
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(MR_WORLD, device=MR_SHARED_DEVICE, backend="gloo",
+                                     join_timeout=MR_JOIN_S)
+    out["dryrun_s"] = time.perf_counter() - t0
+    check(out["dryrun"].endswith("OK"), "dryrun_multichip(2) on the card")
+
+    # (b) the NCCL route at world 1: the production route builds and runs
+    mesh = pt_mesh.make_mesh(device=DEVICE, backend="nccl", timeout=MR_GROUP_S)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        batch = {k: torch.from_numpy(v[:MR_PER_RANK]).to(dev)
+                 for k, v in (("image", image), ("label", label))}
+        nccl = {}
+        for freeze in (True, False):
+            results = []
+            for m in (mesh, None):
+                model, step, loss = _mr_step(torch, {"backbone": "mobilenet",
+                                                     "weights": setup["deeplab"]},
+                                             batch, "float32", dev, m, freeze)
+                results.append((loss, {k: v.detach().clone()
+                                       for k, v in model.state_dict().items()},
+                                _device_ms(torch, dev, lambda: step(batch, 1), 3)))
+            (l_ddp, s_ddp, ms_ddp), (l_one, s_one, ms_one) = results
+            scale = max(v.abs().max().item() for v in s_one.values()
+                        if v.is_floating_point())
+            rel = max((s_ddp[k] - v).abs().max().item() for k, v in s_one.items()
+                      if v.is_floating_point()) / scale
+            bar = 1e-6 if freeze else CPU_PARAM_RTOL
+            name = "BN frozen" if freeze else "train-mode BN"
+            print(f"NCCL route, world 1 ({name}): DDP + cross-replica BN step loss "
+                  f"{l_ddp:.9f} vs plain {l_one:.9f}; parameters {rel:.2e} of the "
+                  f"largest weight (bar {bar}); step {ms_ddp:.2f} ms vs {ms_one:.2f} ms",
+                  flush=True)
+            check(abs(l_ddp - l_one) <= (1e-6 if freeze else CPU_LOSS_RTOL) * abs(l_one),
+                  f"NCCL world-1 {name} loss equals the plain step's")
+            check(rel <= bar, f"NCCL world-1 {name} parameters equal the plain step's")
+            nccl[name] = {"loss_ddp": l_ddp, "loss_plain": l_one, "param_rel": rel,
+                          "ddp_ms": ms_ddp, "plain_ms": ms_one}
+        out["nccl_world1"] = nccl
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        mesh.close()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3521,6 +3917,15 @@ def main(argv=None) -> int:
             check(replay[name]["counts"] == want,
                   f"launches in the {name} phase: {replay[name]['counts']}, "
                   f"expected {want}")
+        # slice 10: the data-parallel ranks (their launches are counted in
+        # the ranks; this process launches B1 and B2 for the one-process
+        # references: a warm-up and a query each)
+        t0 = time.perf_counter()
+        reset_counts()
+        multi_rank = multi_rank_phase(torch, args.seed, tmp, tmp / "cityscapes" / "train",
+                                      paths)
+        multi_rank["counts"] = read_counts()
+        phase_s["multi_rank"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -3560,6 +3965,11 @@ def main(argv=None) -> int:
                                         for name, r in zoo.items()}
         row["slice9_launches"] = {name: r["counts"][row["name"]]
                                   for name, r in replay.items()}
+        row["multi_rank_launches_per_rank"] = {
+            route: r[f"{arch}_launches_per_rank"]
+            for route, r in multi_rank.items() if route.endswith("_ranks")
+            for arch in ("deeplab", "enet")
+            if PATHS[arch]["kernel"] == row["name"]}
     check(paths_result["deeplab_resnet50"]["launches"] == 80,
           "B1 launched 80 times in the ResNet-50 variance query")
 
@@ -3573,7 +3983,7 @@ def main(argv=None) -> int:
              "training": training, "al_round": al_round, "region": region,
              "ceal": ceal, "noise": noise, "representative": representative,
              "greedy": greedy, "oracle": oracle, "accuracy": accuracy,
-             "zoo": zoo, "replay": replay},
+             "zoo": zoo, "replay": replay, "multi_rank": multi_rank},
             indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}

@@ -18,8 +18,14 @@ and kept in the configuration; what each does in the port:
   port always ships the uint8 wire and normalizes on the device.
 * ``--scan-steps k``: accepted; the trainer runs k single steps, which is
   numerically what the JAX package's k-step scan computes.
-* ``--sync-bn``: no effect on one card.
-* ``--num-devices``: one card; more than one raises (ROADMAP A15).
+* ``--sync-bn``: accepted; on more than one rank the batch norms are
+  always cross-replica, as in the JAX package's global step.
+* ``--num-devices N``: N data-parallel ranks, one card each
+  (``parallel/mesh.py``), for ``active_train_torch.py`` and
+  ``train_torch.py``; omitted, every visible card. ``finalize(n)``
+  applies the auto batch and lr rules with the run's n ranks. The other
+  drivers run on one card and refuse more (``refuse_multi_device``,
+  ROADMAP A15b).
 * ``--remat``: raises (``parallel/steps.make_train_step``).
 """
 
@@ -90,7 +96,7 @@ class ExperimentConfig:
     remat: bool = False                    # refused (parallel/steps.py)
     scan_steps: int = 1                    # runs k single steps
     uint8_wire: bool = True                # the port always ships uint8
-    num_devices: Optional[int] = None      # one card
+    num_devices: Optional[int] = None      # ranks; None: every card
     scoring_precision: str = "high"        # TPU only; no effect
     # reproducibility / logging
     seed: int = -1
@@ -122,10 +128,11 @@ class ExperimentConfig:
     mc_dropout: bool = False
 
     def finalize(self, n_devices: int = 1) -> "ExperimentConfig":
-        """Apply the reference's derived-default rules (active_train.py:299-343)."""
-        if (self.num_devices or 1) > 1 or n_devices > 1:
-            raise NotImplementedError("the port runs on one card; more than "
-                                      "one device is ROADMAP A15")
+        """Apply the reference's derived-default rules (active_train.py:299-343)
+        for a run of ``n_devices`` ranks."""
+        if self.num_devices is not None and self.num_devices != n_devices:
+            raise ValueError(f"--num-devices {self.num_devices} in a run of "
+                             f"{n_devices} ranks")
         cfg = dataclasses.replace(self)
         if cfg.sync_bn is None:
             cfg.sync_bn = n_devices > 1
@@ -173,7 +180,7 @@ def add_common_flags(parser: argparse.ArgumentParser,
     a("--base-size", type=int, default=513)
     a("--crop-size", type=int, default=513)
     a("--sync-bn", type=lambda v: v.lower() in ("1", "true", "yes"), default=None,
-      help="no effect on one card")
+      help="accepted; more than one rank always syncs batch norm")
     a("--freeze-bn", type=bool, default=False)
     a("--pretrained-weights", type=str, default=None,
       help="local backbone checkpoint (.pth/.pth.tar/.npz) transplanted "
@@ -231,7 +238,18 @@ def add_common_flags(parser: argparse.ArgumentParser,
     a("--f32-wire", dest="uint8_wire", action="store_false", default=True,
       help="the JAX package's f32 wire; no effect, the port ships uint8")
     a("--num-devices", type=int, default=None,
-      help="one card; more than one is ROADMAP A15")
+      help="data-parallel ranks, one card each (default: every visible "
+           "card); active_train_torch.py and train_torch.py only")
+
+
+def refuse_multi_device(num_devices: Optional[int]) -> None:
+    """The drivers that run on one card: more than one device is refused
+    (ROADMAP A15b)."""
+    if (num_devices or 1) > 1:
+        raise NotImplementedError(
+            f"--num-devices {num_devices}: this driver runs on one card; "
+            "more than one is ROADMAP A15b (active_train_torch.py and "
+            "train_torch.py run data-parallel)")
 
 
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:

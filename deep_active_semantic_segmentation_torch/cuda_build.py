@@ -6,12 +6,16 @@ Each ``csrc/<name>.cu`` exposes plain C entry points. It is compiled with
 are involved, so a build takes seconds. Library names carry a hash of the
 source and the flags, so an edited source is never served a stale build,
 and the sources of another checkout (``csrc``, to time an older design
-beside this one) build into the same directory without a clash.
+beside this one) build into the same directory without a clash. Builds
+run under a file lock in ``_build/``: of the ranks of a data-parallel
+run that start together, the first builds and the others wait for it
+and load what it built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -52,8 +56,16 @@ def library_path(name: str, csrc: Path = CSRC_DIR) -> Path:
 def build(names: Iterable[str] = SOURCES, csrc: Path = CSRC_DIR) -> Dict[str, str]:
     """Compile every named source in ``csrc`` that has no current library,
     one nvcc process per source, all started together. Returns each
-    compiled source's compiler output (ptxas register and spill report)."""
+    compiled source's compiler output (ptxas register and spill report).
+    Processes that build at once take turns (a file lock), so a library
+    one of them built is not built again."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "cuda.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_unlocked(names, csrc)
+
+
+def _build_unlocked(names, csrc: Path) -> Dict[str, str]:
     procs = {}
     for name in names:
         out = library_path(name, csrc)

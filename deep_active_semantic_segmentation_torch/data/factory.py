@@ -36,14 +36,17 @@ def make_dataloader(dataset: str, base_size: int, crop_size: int,
                     overfit: bool = False, *, init_set: Optional[str] = None,
                     memory_hog: bool = False, dataset_root: Optional[str] = None,
                     seed: Optional[int] = None,
-                    rng: Optional[random.Random] = None, device=None):
+                    rng: Optional[random.Random] = None, device=None,
+                    mesh=None):
     """The pools and loaders of ``dataset``. ``seed`` seeds the train
     loader's shuffle; ``rng`` is the host stream the train transforms draw
     from; the loaders put their batches on ``device`` (the CUDA card by
     default). ``num_workers`` is accepted for the reference's signature:
     the train loader runs one producer thread, so the draws keep their
-    order."""
-    device = resolve_device(device)
+    order. ``mesh``: the loaders yield its rank's rows of each global
+    batch of ``batch_size``, on its device."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    shard = dict(rank=mesh.rank, world=mesh.world) if mesh is not None else {}
     if not (dataset in ("cityscapes", "pascal")
             or dataset.endswith(("_image", "_region"))):
         raise NotImplementedError(dataset)
@@ -65,6 +68,7 @@ def make_dataloader(dataset: str, base_size: int, crop_size: int,
         val_set = pool(family, stores["val"], base_size, crop_size, "val",
                        None, seed_dir, overfit, memory_hog, rng)
     train_loader = Loader(train_set, batch_size, shuffle=True, seed=seed,
-                          device=device)
-    val_loader = Loader(val_set, batch_size, shuffle=False, device=device)
+                          device=device, **shard)
+    val_loader = Loader(val_set, batch_size, shuffle=False, device=device,
+                        **shard)
     return train_set, train_loader, val_loader, None, train_set.NUM_CLASSES

@@ -39,19 +39,57 @@ class Loader:
     ``shuffle`` draws each epoch's order from ``np.random.RandomState(seed)``,
     one stream for the loader's life: the AL loop keeps one train loader
     for the whole run, so the order carries on from round to round. Final
-    partial batches are padded with 255-labelled duplicates. Iterating
-    yields host batches; ``device_batches`` puts them on ``device``."""
+    partial batches are padded with 255-labelled duplicates of their
+    first sample. Iterating yields host batches; ``device_batches`` puts
+    them on ``device``.
+
+    ``rank`` / ``world`` (a data-parallel run, ``parallel/mesh.py``):
+    ``batch_size`` is the global batch, and rank r yields rows [r * per,
+    (r + 1) * per) of each global batch the one-rank Loader yields, byte
+    for byte, with ``nvalid`` its valid rows among them. The epoch order
+    is the same; the other rows' transform draws are taken from the
+    pool's host stream without decoding them (``pool.skip_item``), so the
+    stream stays where the one-rank Loader leaves it."""
 
     def __init__(self, pool, batch_size: int, shuffle: bool = False,
-                 seed: Optional[int] = None, device="cpu"):
+                 seed: Optional[int] = None, device="cpu", rank: int = 0,
+                 world: int = 1):
+        from deep_active_semantic_segmentation_torch.parallel.mesh import (
+            process_batch_slice)
+
         self.pool = pool
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.device = torch.device(device)
         self._rng = np.random.RandomState(seed if seed is not None else 0)
+        self.rank, self.world = rank, world
+        self.rows = process_batch_slice(batch_size, rank, world)
 
     def __len__(self):
         return (len(self.pool) + self.batch_size - 1) // self.batch_size
+
+    def _samples(self, idx):
+        """(this rank's samples of the global batch ``idx``, padded to its
+        rows; its valid count)."""
+        start, per = self.rows
+        samples, first_draws = [], None
+        for j, i in enumerate(idx):
+            if start <= j < start + per:
+                samples.append(self.pool.get_item(int(i)))
+            elif j == 0:
+                first_draws = self.pool.skip_item(int(i))
+            else:
+                self.pool.skip_item(int(i))
+        nvalid = len(samples)
+        if nvalid < per:
+            # pad rows duplicate the global batch's first sample; a rank
+            # that skipped it decodes it with its draws replayed
+            first = (samples[0] if start == 0
+                     else self.pool.get_item(int(idx[0]), first_draws))
+            pad = dict(first)
+            pad["label"] = np.full_like(first["label"], 255)
+            samples += [pad] * (per - nvalid)
+        return samples, nvalid
 
     def __iter__(self) -> Iterator[dict]:
         n = len(self.pool)
@@ -59,13 +97,7 @@ class Loader:
         if self.shuffle:
             self._rng.shuffle(order)
         for start in range(0, n, self.batch_size):
-            idx = order[start: start + self.batch_size]
-            samples = [self.pool.get_item(int(i)) for i in idx]
-            nvalid = len(samples)
-            while len(samples) < self.batch_size:
-                pad = dict(samples[0])
-                pad["label"] = np.full_like(samples[0]["label"], 255)
-                samples.append(pad)
+            samples, nvalid = self._samples(order[start: start + self.batch_size])
             image = np.stack([np.asarray(s["image"], np.uint8) for s in samples])
             label = np.stack([np.asarray(s["label"], np.uint8) for s in samples])
             yield {"image": image, "label": label, "nvalid": nvalid}

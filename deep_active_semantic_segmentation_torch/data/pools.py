@@ -93,10 +93,22 @@ class BasePool:
     def load_record(self, path: bytes) -> np.ndarray:
         return np.asarray(self.store.get(path))
 
-    def transform(self, sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        if self.overfit or self.split != "train":
+    def _random(self) -> bool:
+        """Whether the pool's samples take the train transforms' draws."""
+        return not (self.overfit or self.split != "train")
+
+    def transform(self, sample: Dict[str, np.ndarray],
+                  draws=None) -> Dict[str, np.ndarray]:
+        if not self._random():
             return self._eval_tf(sample)
-        return self._train_tf(sample)
+        return self._train_tf(sample, draws)
+
+    def skip_item(self, index: int):
+        """The host stream's draws that ``get_item(index)`` would take,
+        taken without reading or transforming the record (a data-parallel
+        rank passing over another rank's rows); ``get_item(index, draws)``
+        replays them. None where the item draws nothing."""
+        return self._train_tf.draw() if self._random() else None
 
     @staticmethod
     def _pad_to_multiple(paths: List, batch_size: int) -> List:
@@ -143,9 +155,10 @@ class PassivePool(BasePool):
     def __len__(self):
         return len(self.image_paths)
 
-    def get_item(self, index: int) -> Dict[str, np.ndarray]:
+    def get_item(self, index: int, draws=None) -> Dict[str, np.ndarray]:
         rec = self.load_record(self.image_paths[index])
-        return self.transform({"image": rec[:, :, 0:3], "label": rec[:, :, 3]})
+        return self.transform({"image": rec[:, :, 0:3], "label": rec[:, :, 3]},
+                              draws)
 
     def set_paths(self, pathlist):
         self.image_paths = list(pathlist)
@@ -189,11 +202,17 @@ class ActiveImagePool(BasePool):
     def __len__(self):
         return len(self.current_image_paths) + len(self.weakly_labeled_image_paths)
 
-    def get_item(self, index: int) -> Dict[str, np.ndarray]:
+    def skip_item(self, index: int):
+        if index >= len(self.current_image_paths):
+            return None   # a weak sample: the eval transform draws nothing
+        return super().skip_item(index)
+
+    def get_item(self, index: int, draws=None) -> Dict[str, np.ndarray]:
         n_labeled = len(self.current_image_paths)
         if index < n_labeled:
             rec = self.load_record(self.current_image_paths[index])
-            return self.transform({"image": rec[:, :, 0:3], "label": rec[:, :, 3]})
+            return self.transform({"image": rec[:, :, 0:3], "label": rec[:, :, 3]},
+                                  draws)
         # weak samples: the eval transform and the stored pseudo-label
         # (active_cityscapes.py:68-72)
         path = self.weakly_labeled_image_paths[index - n_labeled]
@@ -263,9 +282,10 @@ class ActiveRegionPool(BasePool):
     def __len__(self):
         return len(self.current_image_paths)
 
-    def get_item(self, index: int) -> Dict[str, np.ndarray]:
+    def get_item(self, index: int, draws=None) -> Dict[str, np.ndarray]:
         """The labeled boxes' ground truth copied into a 255-filled
-        full-resolution target, then the pool's transform."""
+        full-resolution target, then the pool's transform (replaying
+        ``draws``, see ``skip_item``)."""
         path = self.current_image_paths[index]
         rec = self.load_record(path)
         target_full = rec[:, :, 3]
@@ -276,7 +296,8 @@ class ActiveRegionPool(BasePool):
             else:
                 tr.invert_fix_scale_crop(target_full, target_masked, r,
                                          self.crop_size)
-        return self.transform({"image": rec[:, :, 0:3], "label": target_masked})
+        return self.transform({"image": rec[:, :, 0:3], "label": target_masked},
+                              draws)
 
     def expand_training_set(self, new_regions: Dict[bytes, List],
                             labeled_pixels: int):

@@ -90,14 +90,19 @@ class ToUint8Wire:
 
 
 class RandomHorizontalFlip:
-    """Reference custom_transforms.py:57-69; one draw from ``rng``."""
+    """Reference custom_transforms.py:57-69; one draw from ``rng``.
+    ``draw()`` takes the draw alone; ``__call__(sample, draws)`` replays
+    draws taken so."""
 
     def __init__(self, rng: random.Random):
         self.rng = rng
 
-    def __call__(self, sample):
+    def draw(self) -> tuple:
+        return (self.rng.random(),)
+
+    def __call__(self, sample, draws=None):
         img, mask = sample["image"], sample["label"]
-        if self.rng.random() < 0.5:
+        if (draws or self.draw())[0] < 0.5:
             img = np.fliplr(img)
             mask = np.fliplr(mask)
         return {"image": img, "label": mask}
@@ -111,20 +116,35 @@ class RandomGaussianBlur:
     def __init__(self, rng: random.Random):
         self.rng = rng
 
-    def __call__(self, sample):
+    def draw(self) -> tuple:
+        """One draw, or two when the blur fires: the count depends on the
+        draws alone, never on the pixels."""
+        u = self.rng.random()
+        return (u, self.rng.random()) if u < 0.5 else (u,)
+
+    def __call__(self, sample, draws=None):
         img, mask = sample["image"], sample["label"]
-        if self.rng.random() < 0.5:
-            img = gaussian_filter(img, sigma=self.rng.random())
+        draws = draws or self.draw()
+        if draws[0] < 0.5:
+            img = gaussian_filter(img, sigma=draws[1])
         return {"image": img, "label": mask}
 
 
 class Compose:
+    """The transforms in order. ``draw()`` takes every random
+    transform's draws, in the order a call would, without touching a
+    pixel (a data-parallel rank skipping another rank's samples);
+    ``__call__(sample, draws)`` replays them."""
+
     def __init__(self, transforms):
         self.transforms = list(transforms)
 
-    def __call__(self, sample):
-        for t in self.transforms:
-            sample = t(sample)
+    def draw(self) -> list:
+        return [t.draw() if hasattr(t, "draw") else None for t in self.transforms]
+
+    def __call__(self, sample, draws=None):
+        for t, d in zip(self.transforms, draws or [None] * len(self.transforms)):
+            sample = t(sample) if d is None else t(sample, d)
         return sample
 
 

@@ -13,6 +13,13 @@ selection mode of ``active_train.py`` runs on image datasets;
 ``variance``, ``variance_representative`` and ``noise_variance`` on region
 datasets too. The combinations the JAX loop cannot finish are refused
 before training.
+
+``mesh`` (``parallel/mesh.py``; the JAX loop's ``mesh``) runs the loop
+data-parallel: every rank trains on its rows of each global batch of
+``--batch-size`` (which the ranks must divide), scores its share of the
+pool, and expands the same pool with the same picks, which the ranks
+check against each other after every selection; rank 0 writes the run's
+files. The returned seconds are each rank's own.
 """
 
 from __future__ import annotations
@@ -41,6 +48,17 @@ _MODES = ("random", "variance", "variance_representative", "coreset",
           "accuracy_eval") + _CEAL
 _REGION_CAPABLE = ("random", "variance", "variance_representative",
                    "noise_variance", "accuracy_eval", "accuracy_labels")
+
+
+def check_args(args, world: int = 1) -> None:
+    """Refuse, before any training, what the loop cannot run on ``world``
+    ranks: ``_check_mode``'s combinations, and a global batch that the
+    ranks do not divide."""
+    _check_mode(args.active_selection_mode, args.dataset)
+    if args.batch_size % world:
+        raise ValueError(f"--batch-size {args.batch_size} does not divide over "
+                         f"{world} ranks: the global batch must be a multiple "
+                         "of --num-devices")
 
 
 def _check_mode(mode: str, dataset: str) -> None:
@@ -72,35 +90,38 @@ def _check_mode(mode: str, dataset: str) -> None:
 
 
 def run_active_loop(args, dataset_root: Optional[str] = None,
-                    runs_root: Optional[str] = None, device=None) -> dict:
+                    runs_root: Optional[str] = None, device=None,
+                    mesh=None) -> dict:
     """Run the loop of ``args`` (a finalized ``ExperimentConfig``) on
-    ``device`` (the CUDA card by default). Returns ``{percent labeled:
-    {mIoU, Acc, Acc_class, FWIoU, seconds}}``: the round's best metrics,
-    and its wall seconds in ``train``, ``validate`` and ``select`` (the
-    best-checkpoint reload, the scoring and the pool update)."""
+    ``device`` (the CUDA card by default), or on ``mesh``'s ranks (each on
+    its device). Returns ``{percent labeled: {mIoU, Acc, Acc_class, FWIoU,
+    seconds}}``: the round's best metrics, and its wall seconds in
+    ``train``, ``validate`` and ``select`` (the best-checkpoint reload, the
+    scoring and the pool update)."""
     mode = args.active_selection_mode
     region = args.dataset.endswith("_region")
-    _check_mode(mode, args.dataset)
-    device = resolve_device(device)
+    check_args(args, mesh.world if mesh is not None else 1)
+    device = mesh.device if mesh is not None else resolve_device(device)
     rng = random.Random(args.seed)
 
     training_set, train_loader, val_loader, _, nclass = make_dataloader(
         args.dataset, args.base_size, args.crop_size, args.batch_size,
         args.workers, args.overfit, init_set=args.seed_set,
         memory_hog=args.memory_hog, dataset_root=dataset_root,
-        seed=args.seed, rng=rng, device=device)
+        seed=args.seed, rng=rng, device=device, mesh=mesh)
     args.nclass = nclass
 
-    saver = Saver(args, runs_root=runs_root)
+    saver = Saver(args, runs_root=runs_root, mesh=mesh)
     saver.save_experiment_config()
-    summary = TensorboardSummary(saver.experiment_dir)
+    summary = TensorboardSummary(saver.experiment_dir, mesh)
     writer = summary.create_summary()
 
     active_selector = get_active_selection_class(
         mode, nclass, training_set.store, args.crop_size, args.batch_size,
-        device=device)
+        device=device, mesh=mesh)
     max_subset_selector = get_max_subset_active_selector(
-        training_set.store, args.crop_size, args.batch_size, device=device)
+        training_set.store, args.crop_size, args.batch_size, device=device,
+        mesh=mesh)
 
     total_iterations = min(
         len(training_set.image_paths) // args.active_batch_size - 1,
@@ -121,7 +142,7 @@ def run_active_loop(args, dataset_root: Optional[str] = None,
     assert args.epochs % args.eval_interval == 0
 
     trainer = Trainer(args, train_loader, val_loader, nclass, device=device,
-                      runs_root=runs_root, rng=rng)
+                      runs_root=runs_root, rng=rng, mesh=mesh)
     trainer.initialize()
     history = {}
 
@@ -188,8 +209,16 @@ def run_active_loop(args, dataset_root: Optional[str] = None,
         _select(args, mode, active_selector, max_subset_selector,
                 trainer.bundle, training_set, selection_iter, rng, runs_root)
         seconds["select"] = time.perf_counter() - t0
+        if mesh is not None:
+            mesh.assert_same(
+                [getattr(training_set, name, None) for name in (
+                    "current_image_paths", "weakly_labeled_image_paths",
+                    "current_paths_to_regions_map")],
+                "the labeled pool after a selection")
 
     writer.close()
+    if trainer.writer is not None:
+        trainer.writer.close()
     return history
 
 

@@ -39,6 +39,17 @@ the random init, as in the reference.
 ``train_grids`` (``train_torch.py``) writes one train-batch grid per
 epoch, picked, as in the JAX package, over the VAL loader's length
 (reference train.py:106); a pick past the train loader's end writes none.
+
+``mesh`` (``parallel/mesh.py``; the JAX trainer's ``mesh``): the loaders
+yield the rank's rows of each global batch, the model's batch norms
+become ``CrossReplicaBatchNorm2d``s, the train step is data-parallel and
+the eval step all-reduces, so every rank computes the same losses,
+metrics and best epoch. Every rank draws the same host-stream numbers
+(its summary writer on ranks other than 0 is a ``NullWriter``); only rank
+0 writes files, and every rank reads ``best.ckpt`` after a barrier. The
+weights, the dropout generator, the class weights (class counts summed
+over the ranks) and the transplant are the same on every rank. The
+two-headed trainer runs on one rank (ROADMAP A15b).
 """
 
 from __future__ import annotations
@@ -58,6 +69,8 @@ from deep_active_semantic_segmentation_torch.ops.losses import build_loss
 from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
     constant_schedule, make_schedule)
 from deep_active_semantic_segmentation_torch.ops.metrics import Evaluator
+from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+    convert_cross_replica_bn)
 from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
 from deep_active_semantic_segmentation_torch.parallel.steps import (
     make_dual_eval_step, make_dual_train_step, make_eval_step, make_train_step)
@@ -76,9 +89,13 @@ class Trainer:
                  device=None, dual_head: bool = False,
                  runs_root: Optional[str] = None,
                  rng: Optional[random.Random] = None,
-                 train_grids: bool = False):
+                 train_grids: bool = False, mesh=None):
         self.args = args
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.distributed and dual_head:
+            raise NotImplementedError("the two-headed trainer runs on one "
+                                      "rank (ROADMAP A15b)")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         for loader in (train_loader, val_loader):
             if loader.device != self.device:
                 raise ValueError(f"loader puts batches on {loader.device}, "
@@ -104,10 +121,12 @@ class Trainer:
         makes selections.txt's lines ``path,r,c,h,w,...``."""
         self.num_current_labeled_samples = num_current_labeled_samples
         self.saver = ActiveSaver(self.args, num_current_labeled_samples,
-                                 runs_root=self.runs_root)
+                                 runs_root=self.runs_root, mesh=self.mesh)
         self.saver.save_experiment_config()
         self.saver.save_active_selections(samples, regions)
-        self.summary = TensorboardSummary(self.saver.experiment_dir)
+        self.summary = TensorboardSummary(self.saver.experiment_dir, self.mesh)
+        if self.writer is not None:   # the previous round's
+            self.writer.close()
         self.writer = self.summary.create_summary()
 
     # -- model/optimizer construction (active_train.py:42-87) --
@@ -120,6 +139,7 @@ class Trainer:
                                  device=self.device, generator=self.generator,
                                  enet_head=self.dual_head and args.architecture == "enet",
                                  symmetry=args.symmetry)
+        convert_cross_replica_bn(self.model, self.mesh)
         self._transplant_pretrained_backbone()
         self.optimizer = build_optimizer(
             args.optimizer, param_groups(self.model, arch), args)
@@ -127,7 +147,8 @@ class Trainer:
         if args.use_balanced_weights and self._class_weights is None:
             print("Calculating class weights..")
             self._class_weights = torch.as_tensor(
-                calculate_weights_labels(self.train_loader, self.nclass),
+                calculate_weights_labels(self.train_loader, self.nclass,
+                                         self.mesh),
                 dtype=torch.float32, device=self.device)
 
         # the round's schedule geometry, read after the pool is padded to
@@ -140,7 +161,8 @@ class Trainer:
         else:
             schedule = constant_schedule(args.lr)
         losses = [build_loss(args.loss_type, class_weights=self._class_weights,
-                             batch_average=average) for average in (True, False)]
+                             batch_average=average, mesh=self.mesh)
+                  for average in (True, False)]
         if self.dual_head:
             w_wrong = args.weight_wrong_label_unet
             unet_weights = torch.tensor([w_wrong, 1 - w_wrong],
@@ -159,8 +181,9 @@ class Trainer:
             self.train_step = make_train_step(
                 self.model, self.optimizer, losses[0], schedule,
                 compute_dtype=args.dtype, generator=self.generator,
-                remat=args.remat)
-            self.eval_step = make_eval_step(self.model, self.nclass, losses[1])
+                remat=args.remat, mesh=self.mesh)
+            self.eval_step = make_eval_step(self.model, self.nclass, losses[1],
+                                            mesh=self.mesh)
         self.step = 0
         self.evaluator = Evaluator(self.nclass, self.device)
         self.best_pred = 0.0
@@ -185,7 +208,9 @@ class Trainer:
 
     def load_best_checkpoint(self):
         """Reload best.ckpt onto the trainer's device before selection
-        (active_train.py:440-441)."""
+        (active_train.py:440-441), on every rank once rank 0 has written it."""
+        if self.mesh is not None:
+            self.mesh.barrier()
         path = os.path.join(self.saver.experiment_dir, BEST_NAME)
         payload = load_checkpoint(path, self.model, self.optimizer, self.device)
         self.step = payload["step"]
@@ -236,6 +261,8 @@ class Trainer:
                     self.writer.add_scalar("train/total_loss_iter_un", loss[2], it)
                 if self.args.use_lr_scheduler:
                     self.writer.add_scalar("train/learning_rate", lr, it)
+        if self.mesh is not None:   # every rank's images
+            n_images = int(self.mesh.all_reduce(torch.tensor([float(n_images)])))
         # the losses' fetch above waited for the card: the clock is honest
         imgs_per_sec = n_images / max(time.perf_counter() - epoch_start, 1e-9)
         if self.writer is not None:

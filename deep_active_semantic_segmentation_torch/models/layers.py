@@ -12,7 +12,9 @@
 * ``ChannelDropout`` — torch ``nn.Dropout2d`` semantics (one Bernoulli per
   (image, channel), survivors scaled by 1/(1-p)) with the draw taken from
   an explicit ``torch.Generator`` on the tensor's device, so MC-dropout
-  masks are reproducible per (seed, batch).
+  masks are reproducible per (seed, batch). Under ``dropout_rows`` (a
+  data-parallel train step) a rank draws the global batch's masks and
+  keeps its rows, so N ranks see the one-card step's masks.
 * ``feature_noise`` — the MC-noise hook: additive gaussian noise scaled
   by |mean(x)| over the whole batch tensor, drawn from an explicit
   generator.
@@ -22,6 +24,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple, Union
 
 import torch
@@ -73,26 +76,46 @@ class ChannelDropout(nn.Module):
     (identity); otherwise one keep/drop per (image, channel) is drawn from
     ``generator`` and survivors are scaled by 1/(1-p). Holds no parameters,
     so it leaves the state_dict keys of the module around it unchanged.
+    ``rows`` = (rank, world): the masks are drawn for ``world`` times the
+    batch and rows [rank * B, (rank + 1) * B) are kept (``dropout_rows``).
     """
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
+        self.rows = (0, 1)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if generator is None:
             return x
         keep = 1.0 - self.p
+        rank, world = self.rows
+        b = x.shape[0]
         # drawn in f32 whatever x's dtype, so f32 and bf16 forwards from
         # one generator state see the same masks
-        mask = torch.empty(x.shape[:2] + (1, 1), dtype=torch.float32,
-                           device=x.device)
+        mask = torch.empty((b * world,) + x.shape[1:2] + (1, 1),
+                           dtype=torch.float32, device=x.device)
         mask.bernoulli_(keep, generator=generator).div_(keep)
-        return x * mask.to(x.dtype)
+        return x * mask[rank * b:(rank + 1) * b].to(x.dtype)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+@contextlib.contextmanager
+def dropout_rows(model: nn.Module, rank: int, world: int):
+    """For the length of a ``with`` block, every ``ChannelDropout`` of
+    ``model`` draws the masks of a ``world``-rank global batch and keeps
+    rank ``rank``'s rows (the data-parallel train step's forward)."""
+    drops = [m for m in model.modules() if isinstance(m, ChannelDropout)]
+    for m in drops:
+        m.rows = (rank, world)
+    try:
+        yield
+    finally:
+        for m in drops:
+            m.rows = (0, 1)
 
 
 def fixed_padding(x: torch.Tensor, kernel_size: int, dilation: int) -> torch.Tensor:

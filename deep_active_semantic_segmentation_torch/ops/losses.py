@@ -14,6 +14,17 @@ reference utils/loss.py:5-70).
 
 Logits are NCHW (any float dtype; the loss is computed in f32), targets
 (B, H, W) integers with 255 as the ignore label.
+
+``mesh``: the ranks of a data-parallel step (``parallel/mesh.py``), each
+holding its rows of the global batch. The normalizers are then the
+global batch's: CE's weight sum over every rank's valid pixels, the
+batch size of ``batch_average`` and the sample-weighted batch mean. The
+sums cross the ranks through ``cross_replica_sum``, so every rank
+computes the global batch's loss, and with DistributedDataParallel's
+mean of the gradients the update is that loss's gradient, also where
+the ranks hold different counts of valid pixels (a mean of per-rank
+losses would weight them wrongly). Without a process group the
+arithmetic is the one-card path's.
 """
 
 from __future__ import annotations
@@ -24,7 +35,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+    cross_replica_sum)
+
 IGNORE_INDEX = 255
+
+
+def _global_batch(logits: torch.Tensor, mesh) -> int:
+    return logits.shape[0] * (mesh.world if mesh is not None and mesh.distributed
+                              else 1)
 
 
 def _per_pixel(logits: torch.Tensor, target: torch.Tensor, class_weights):
@@ -43,57 +62,68 @@ def _per_pixel(logits: torch.Tensor, target: torch.Tensor, class_weights):
 
 def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                   class_weights: Optional[torch.Tensor] = None,
-                  batch_average: bool = True) -> torch.Tensor:
+                  batch_average: bool = True, mesh=None) -> torch.Tensor:
     """Mean CE over non-ignored pixels, optionally class-weighted: the
     normalizer is the sum of the contributing pixels' weights."""
     nll, w = _per_pixel(logits, target, class_weights)
     floor = 1e-12 if class_weights is not None else 1.0
-    loss = (nll * w).sum() / w.sum().clamp_min(floor)
+    loss = (cross_replica_sum((nll * w).sum(), mesh)
+            / cross_replica_sum(w.sum(), mesh).clamp_min(floor))
     if batch_average:
-        loss = loss / logits.shape[0]
+        loss = loss / _global_batch(logits, mesh)
     return loss
 
 
 def focal_loss(logits: torch.Tensor, target: torch.Tensor,
                gamma: float = 2.0, alpha: Optional[float] = 0.5,
                class_weights: Optional[torch.Tensor] = None,
-               batch_average: bool = True) -> torch.Tensor:
-    """Focal loss computed from the averaged CE (reference loss.py:53-70)."""
-    logpt = -cross_entropy(logits, target, class_weights, batch_average=False)
+               batch_average: bool = True, mesh=None) -> torch.Tensor:
+    """Focal loss computed from the averaged CE (reference loss.py:53-70);
+    with ``mesh``, the global batch's averaged CE."""
+    logpt = -cross_entropy(logits, target, class_weights, batch_average=False,
+                           mesh=mesh)
     pt = torch.exp(logpt)
     if alpha is not None:
         logpt = logpt * alpha
     loss = -((1.0 - pt) ** gamma) * logpt
     if batch_average:
-        loss = loss / logits.shape[0]
+        loss = loss / _global_batch(logits, mesh)
     return loss
 
 
 def sample_weighted_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                                   sample_weights: torch.Tensor,
                                   class_weights: Optional[torch.Tensor] = None,
-                                  batch_average: bool = True) -> torch.Tensor:
+                                  batch_average: bool = True,
+                                  mesh=None) -> torch.Tensor:
     """Per-sample weighted CE (reference loss.py:22-37): per-pixel NLL
     (0 at ignored pixels), spatial mean over H*W (ignored pixels in the
-    denominator), then a weighted batch mean."""
+    denominator), then a weighted batch mean. With ``mesh``,
+    ``sample_weights`` are this rank's rows' and the mean is the global
+    batch's."""
     nll, w = _per_pixel(logits, target, class_weights)
     if class_weights is not None:
         nll = nll * w
     per_sample = nll.mean(dim=(1, 2))
-    loss = (per_sample * torch.as_tensor(sample_weights, dtype=torch.float32,
-                                         device=nll.device)).mean()
+    weighted = per_sample * torch.as_tensor(sample_weights, dtype=torch.float32,
+                                            device=nll.device)
+    if mesh is not None and mesh.distributed:
+        loss = cross_replica_sum(weighted.sum(), mesh) / _global_batch(logits, mesh)
+    else:
+        loss = weighted.mean()
     if batch_average:
-        loss = loss / logits.shape[0]
+        loss = loss / _global_batch(logits, mesh)
     return loss
 
 
 def build_loss(mode: str = "ce", class_weights: Optional[torch.Tensor] = None,
-               batch_average: bool = True):
-    """Factory mirroring SegmentationLosses.build_loss (loss.py:14-20)."""
+               batch_average: bool = True, mesh=None):
+    """Factory mirroring SegmentationLosses.build_loss (loss.py:14-20);
+    ``mesh`` makes the normalizers the global batch's."""
     if mode == "ce":
         return partial(cross_entropy, class_weights=class_weights,
-                       batch_average=batch_average)
+                       batch_average=batch_average, mesh=mesh)
     if mode == "focal":
         return partial(focal_loss, class_weights=class_weights,
-                       batch_average=batch_average)
+                       batch_average=batch_average, mesh=mesh)
     raise NotImplementedError(mode)

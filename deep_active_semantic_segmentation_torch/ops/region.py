@@ -23,7 +23,7 @@ host.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,7 +96,8 @@ DONE_CHECK_EVERY = 64
 
 
 def square_nms_device(score_maps: torch.Tensor, region_size: int, count: int,
-                      stop_threshold: float = 0.01):
+                      stop_threshold: float = 0.01,
+                      values: Optional[torch.Tensor] = None):
     """Greedy square NMS on the maps' device, with ``square_nms``'s
     selection semantics: global first-occurrence argmax, zero the rows and
     columns [x - R, x + R) (clipped) in the picked image only, stop once
@@ -113,6 +114,8 @@ def square_nms_device(score_maps: torch.Tensor, region_size: int, count: int,
 
     Returns (boxes (count, 3) int64 rows of (image, r, c), number of boxes
     as a 0-d int64 tensor); rows at and past that number are zero.
+    ``values``: a (count,) f32 tensor on the device, where each box's
+    score at its pick is written.
     """
     N, S1, S2 = score_maps.shape
     R = region_size
@@ -135,6 +138,8 @@ def square_nms_device(score_maps: torch.Tensor, region_size: int, count: int,
         a = parg.index_select(0, i)
         r, c = a // S2, a % S2
         boxes[k] = torch.where(active, torch.cat([i, r, c]), boxes[k])
+        if values is not None:
+            values[k] = torch.where(active, pmax.index_select(0, i)[0], values[k])
         window = (((rows >= r - R) & (rows < r + R))[:, None]
                   & ((cols >= c - R) & (cols < c + R))[None, :])
         img = maps.index_select(0, i)[0]

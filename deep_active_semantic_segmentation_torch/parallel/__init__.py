@@ -1,1 +1,2 @@
-"""Optimizers and the train / eval steps."""
+"""The data-parallel runtime (mesh, cross-replica BN, the dry run),
+optimizers and the train / eval steps."""

@@ -16,8 +16,19 @@ caller may thus hold batch norm at its running statistics while it trains
 tests do.
 
 There is no counterpart of the JAX package's ``scan_steps`` (k steps fused
-into one program to save dispatches) or of its device mesh: the trainer
-runs one step per batch, which is numerically what a k-step scan computes.
+into one program to save dispatches): the trainer runs one step per
+batch, which is numerically what a k-step scan computes.
+
+``mesh`` (``parallel/mesh.py``) with a process group runs the JAX
+package's data-parallel step: each rank holds its rows of the global
+batch, the model is wrapped in ``DistributedDataParallel`` (gradients
+averaged; ``broadcast_buffers`` off, so every rank's BN buffers come from
+its own cross-replica statistics and a divergence would show), its
+``layers.batch_norm``s are ``CrossReplicaBatchNorm2d``s (the caller
+converts them), the loss is built with the mesh (global normalizers) and
+the dropout masks are the global batch's rows (``layers.dropout_rows``).
+The eval step all-reduces the confusion matrix and the valid count. The
+two-headed steps run on one rank (ROADMAP A15b).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from typing import Callable, Optional
 
 import torch
 
+from deep_active_semantic_segmentation_torch.models.layers import dropout_rows
 from deep_active_semantic_segmentation_torch.ops.metrics import confusion_matrix
 from deep_active_semantic_segmentation_torch.parallel.optim import set_lr
 from deep_active_semantic_segmentation_torch.selection.kernels import (
@@ -53,10 +65,25 @@ def _autocast_bf16(compute_dtype: str, remat: bool) -> bool:
     return compute_dtype == "bfloat16"
 
 
+def _distributed(mesh) -> bool:
+    return mesh is not None and mesh.distributed
+
+
+def _data_parallel(model, mesh):
+    """``model`` in ``DistributedDataParallel`` over ``mesh``'s group,
+    buffers not broadcast. DDP's construction broadcasts rank 0's
+    parameters, which leaves weights every rank built alike unchanged."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    return DistributedDataParallel(
+        model, device_ids=[mesh.device.index] if mesh.device.type == "cuda" else None,
+        process_group=mesh.group, broadcast_buffers=False)
+
+
 def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
                     compute_dtype: str = "float32",
                     generator: Optional[torch.Generator] = None,
-                    remat: bool = False, norm=None) -> Callable:
+                    remat: bool = False, norm=None, mesh=None) -> Callable:
     """``step(batch, step_index, total_iters=None, iters_per_epoch=None)
     -> {'loss': 0-d device tensor, 'lr': float}``: one forward and
     backward, then the optimizer step at ``schedule(step_index, ...)``.
@@ -68,16 +95,21 @@ def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
     ``remat`` is refused: ``torch.utils.checkpoint`` restores the default
     generators' state for its recompute, not an explicit dropout
     generator's, so the recomputed forward would draw other masks and the
-    gradients would be wrong. ``norm``: as in ``ingest``."""
+    gradients would be wrong. ``norm``: as in ``ingest``. ``mesh``: see
+    the module docstring; ``generator`` is then in the same state on
+    every rank."""
     bf16 = _autocast_bf16(compute_dtype, remat)
+    net, rows = model, (0, 1)
+    if _distributed(mesh):
+        net, rows = _data_parallel(model, mesh), (mesh.rank, mesh.world)
 
     def step(batch, step_index: int, total_iters: Optional[int] = None,
              iters_per_epoch: Optional[int] = None):
         image, label = ingest(batch, norm)
         with torch.autocast(image.device.type, dtype=torch.bfloat16,
-                            enabled=bf16):
-            out = model(image, use_dropout=generator is not None,
-                        generator=generator)
+                            enabled=bf16), dropout_rows(model, *rows):
+            out = net(image, use_dropout=generator is not None,
+                      generator=generator)
         loss = loss_fn(out.float(), label)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -167,12 +199,15 @@ def make_dual_eval_step(model, num_classes: int, seg_loss_fn: Callable,
 
 
 def make_eval_step(model, num_classes: int, loss_fn: Callable,
-                   norm=None) -> Callable:
+                   norm=None, mesh=None) -> Callable:
     """``step(batch, nvalid) -> {'loss', 'confusion', 'pred'}`` in eval mode
     without gradients. ``loss_fn`` is built with ``batch_average=False``;
     the loss divides by the true ``nvalid`` instead (the reference's
     partial-batch average), so padded 255-labelled duplicates change
-    nothing. ``norm``: as in ``ingest``."""
+    nothing. ``norm``: as in ``ingest``. With ``mesh`` (and ``loss_fn``
+    built with it) ``batch`` holds this rank's rows, ``nvalid`` counts its
+    valid ones, and the loss and confusion are the global batch's on every
+    rank; ``pred`` stays this rank's."""
 
     @torch.no_grad()
     def step(batch, nvalid: int):
@@ -180,8 +215,11 @@ def make_eval_step(model, num_classes: int, loss_fn: Callable,
         image, label = ingest(batch, norm)
         out = model(image)
         pred = out.argmax(dim=1)
-        return {"loss": loss_fn(out, label) / nvalid,
-                "confusion": confusion_matrix(label, pred, num_classes),
+        confusion = confusion_matrix(label, pred, num_classes)
+        if _distributed(mesh):
+            nvalid = mesh.all_reduce(torch.tensor(float(nvalid), device=out.device))
+            mesh.all_reduce(confusion)
+        return {"loss": loss_fn(out, label) / nvalid, "confusion": confusion,
                 "pred": pred}
 
     return step

@@ -24,34 +24,35 @@ __all__ = ["ModelBundle", "ActiveSelectionAccuracy", "ActiveSelectionCEAL",
 
 def get_active_selection_class(active_selection_method, dataset_num_classes,
                                store, crop_size, dataloader_batch_size,
-                               device=None, mc_dtype=None):
+                               device=None, mc_dtype=None, mesh=None):
     """reference active_selection/__init__.py:9-21 (store replaces the lmdb
     env). ``device``: where pool batches are scored (the CUDA card by
-    default); ``mc_dtype``: the MC forwards' compute dtype."""
+    default); ``mc_dtype``: the MC forwards' compute dtype; ``mesh``: the
+    ranks the pool is sharded over (``selection/base.py``)."""
     m = active_selection_method
     if m == "coreset":
         return ActiveSelectionCoreSet(store, crop_size, dataloader_batch_size,
-                                      device=device)
+                                      device=device, mesh=mesh)
     if m in ("ceal_confidence", "ceal_margin", "ceal_entropy", "ceal_fusion",
              "ceal_entropy_weakly_labeled"):
         return ActiveSelectionCEAL(dataset_num_classes, store, crop_size,
-                                   dataloader_batch_size, device=device)
+                                   dataloader_batch_size, device=device, mesh=mesh)
     if m in ("noise_image", "noise_feature", "noise_variance"):
         return ActiveSelectionMCNoise(dataset_num_classes, store, crop_size,
                                       dataloader_batch_size, device=device,
-                                      mc_dtype=mc_dtype)
+                                      mc_dtype=mc_dtype, mesh=mesh)
     if m in ("variance", "variance_representative", "random"):
         return ActiveSelectionMCDropout(dataset_num_classes, store, crop_size,
                                         dataloader_batch_size, device=device,
-                                        mc_dtype=mc_dtype)
+                                        mc_dtype=mc_dtype, mesh=mesh)
     if m in ("accuracy_labels", "accuracy_eval"):
         return ActiveSelectionAccuracy(dataset_num_classes, store, crop_size,
-                                       dataloader_batch_size, device=device)
+                                       dataloader_batch_size, device=device, mesh=mesh)
     raise NotImplementedError(m)
 
 
 def get_max_subset_active_selector(store, crop_size, dataloader_batch_size,
-                                   device=None):
+                                   device=None, mesh=None):
     """reference active_selection/__init__.py:23-25."""
     return ActiveSelectionMaxSubset(store, crop_size, dataloader_batch_size,
-                                    device=device)
+                                    device=device, mesh=mesh)

@@ -21,16 +21,16 @@ import time
 
 from deep_active_semantic_segmentation_torch.selection import kernels
 from deep_active_semantic_segmentation_torch.selection.base import (
-    ActiveSelectionBase, ModelBundle, collect_scores, rank_descending)
+    ActiveSelectionBase, ModelBundle, rank_descending)
 from deep_active_semantic_segmentation_torch.selection.region_pipeline import (
     create_region_maps_from_scorer)
 
 
 class ActiveSelectionAccuracy(ActiveSelectionBase):
     def __init__(self, num_classes, dataset_store, crop_size,
-                 dataloader_batch_size, device=None):
+                 dataloader_batch_size, device=None, mesh=None):
         super().__init__(dataset_store, crop_size, dataloader_batch_size,
-                         device=device)
+                         device=device, mesh=mesh)
         self.num_classes = num_classes
 
     def get_least_accurate_sample_using_labels(self, bundle: ModelBundle,
@@ -39,10 +39,10 @@ class ActiveSelectionAccuracy(ActiveSelectionBase):
         oracle reads the full label plane, not the packed mask."""
         self._check_bundle(bundle)
         model = bundle.model.eval()
-        scores = collect_scores(
-            self._paths_loader(images, include_labels=True),
-            lambda batch: kernels.misprediction_counts(
-                model, batch["image"], batch["label"], self.num_classes))
+        scores = self._collect_scores(
+            images, lambda batch: kernels.misprediction_counts(
+                model, batch["image"], batch["label"], self.num_classes),
+            include_labels=True)
         return rank_descending(scores, list(images), selection_count)
 
     def _rank_by(self, bundle: ModelBundle, images, selection_count, kernel,
@@ -52,11 +52,11 @@ class ActiveSelectionAccuracy(ActiveSelectionBase):
         reference's stable descending sort, top ``selection_count``."""
         self._check_bundle(bundle)
         model = bundle.model.eval()
-        scores = collect_scores(
-            self._paths_loader(images, include_labels=True,
-                               labels_as_mask=self.num_classes),
-            lambda batch: kernel(model, batch["image"], batch["label"],
-                                 self.num_classes, *args, labels_packed=True))
+        scores = self._collect_scores(
+            images, lambda batch: kernel(model, batch["image"], batch["label"],
+                                         self.num_classes, *args,
+                                         labels_packed=True),
+            include_labels=True, labels_as_mask=self.num_classes)
         return rank_descending(scores, list(images), selection_count)
 
     def get_least_accurate_samples(self, bundle: ModelBundle, images,
@@ -96,7 +96,7 @@ class ActiveSelectionAccuracy(ActiveSelectionBase):
                 model, batch["image"], batch["label"], self.num_classes,
                 labels_packed=True),
             loader, list(images), existing_regions, region_size,
-            selection_size, base_size)
+            selection_size, base_size, mesh=self.mesh)
 
     @staticmethod
     def wait_for_selected_samples(location_to_monitor, images,

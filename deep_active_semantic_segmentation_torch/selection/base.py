@@ -6,6 +6,16 @@ selector owns the pool-scoring loader: host geometry in ordered prefetch
 workers, then a pinned-memory, non-blocking copy of the uint8 wire to the
 card. ``ActiveSelectionMC`` is the MC selectors' shared per-batch
 vote-entropy scorer, ranking and region maps.
+
+``mesh`` (a data-parallel run, ``parallel/mesh.py``; the JAX selectors'
+``pool_mesh``): the pool is sharded by whole scoring batches, rank r
+scoring batches i with i mod world = r, and each batch keeps its global
+index, so batch i's MC sweep draws from ``mc_generator(seed, i)`` on
+whichever rank scores it and the N-rank scores are the one-rank scores
+(the JAX package folds the shard index into its key instead, and shards
+only a batch the devices divide). The per-image results (scores,
+features, a region round's candidate boxes; never the score maps) are
+gathered to every rank in pool order, and every rank ranks them the same.
 """
 
 from __future__ import annotations
@@ -43,11 +53,12 @@ class ModelBundle:
 
 class ActiveSelectionBase:
     def __init__(self, dataset_store, crop_size, dataloader_batch_size,
-                 device=None, mc_dtype=None):
+                 device=None, mc_dtype=None, mesh=None):
         self.store = dataset_store
         self.crop_size = crop_size
         self.dataloader_batch_size = dataloader_batch_size
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self._mc_dtype = mc_dtype
 
     def mc_dtype(self) -> str:
@@ -61,14 +72,21 @@ class ActiveSelectionBase:
 
     def _paths_loader(self, images, include_labels=True,
                       labels_as_mask=None):
+        """The scoring batches of ``images`` on the device, each with its
+        global batch ``index``: every batch, or with a mesh this rank's."""
         loader = PathsLoader(self.store, images, self.crop_size,
                              self.dataloader_batch_size,
                              include_labels=include_labels,
                              labels_as_mask=labels_as_mask)
         device = self.device
+        rank, world = (self.mesh.rank, self.mesh.world) if self.mesh else (0, 1)
+        chunks = ((i, chunk) for i, chunk in enumerate(loader.iter_chunks())
+                  if i % world == rank)
 
-        def build_and_put(chunk):
+        def build_and_put(item):
+            index, chunk = item
             out = loader.build_batch(chunk)
+            out["index"] = index
             for k in ("image", "label"):
                 if k in out:
                     out[k] = to_device(out[k], device)
@@ -78,8 +96,29 @@ class ActiveSelectionBase:
         # host geometry (PIL releases the GIL) and start the copies ahead
         # of the consumer; batches arrive in order
         workers = int(os.environ.get("DASS_PREFETCH_WORKERS", "3"))
-        return prefetch_to_device(loader.iter_chunks(), build_and_put,
-                                  depth=2, workers=workers)
+        return prefetch_to_device(chunks, build_and_put, depth=2,
+                                  workers=workers)
+
+    def _collect_rows(self, images, row_fn, **loader_kw) -> torch.Tensor:
+        """``row_fn(batch)`` -> the batch's valid rows (a device tensor),
+        over every scoring batch of ``images`` (``_paths_loader`` with
+        ``loader_kw``), concatenated in pool order on the device; with a
+        mesh each rank computes its batches and every rank gets all rows.
+        The rows stay on the device until the sweep is done."""
+        parts = {b["index"]: row_fn(b)
+                 for b in self._paths_loader(images, **loader_kw)}
+        if self.mesh is None:
+            return torch.cat([parts[i] for i in sorted(parts)])
+        return self.mesh.gather_rows(parts)
+
+    def _collect_scores(self, images, score_batch_fn, **loader_kw) -> list:
+        """``score_batch_fn(batch)`` -> (B,) device scores, as one host
+        list in pool order (``_collect_rows``)."""
+        if not len(images):
+            return []
+        return self._collect_rows(
+            images, lambda b: score_batch_fn(b)[:b["nvalid"]],
+            **loader_kw).cpu().tolist()
 
 
 class ActiveSelectionMC(ActiveSelectionBase):
@@ -87,33 +126,32 @@ class ActiveSelectionMC(ActiveSelectionBase):
     sweeps on the device."""
 
     def __init__(self, dataset_num_classes, dataset_store, crop_size,
-                 dataloader_batch_size, device=None, mc_dtype=None):
+                 dataloader_batch_size, device=None, mc_dtype=None, mesh=None):
         super().__init__(dataset_store, crop_size, dataloader_batch_size,
-                         device=device, mc_dtype=mc_dtype)
+                         device=device, mc_dtype=mc_dtype, mesh=mesh)
         self.dataset_num_classes = dataset_num_classes
 
     def _scorer(self, bundle: ModelBundle, seed: int, modes=("dropout",)):
         """batch -> (B, H, W) masked vote-entropy maps, summed over one
         ``kernels.mc_vote_entropy_maps`` sweep per noise mode in ``modes``.
-        Batch i's sweep j draws from ``mc_generator(seed, len(modes) * i +
-        j)``: the port's counterpart of the JAX selectors' ``fold_in(key,
-        i)`` (and of 2i, 2i + 1 in the combined noise + dropout scorer)."""
+        Batch i (its global ``index``) sweep j draws from
+        ``mc_generator(seed, len(modes) * i + j)``: the port's counterpart
+        of the JAX selectors' ``fold_in(key, i)`` (and of 2i, 2i + 1 in the
+        combined noise + dropout scorer)."""
         self._check_bundle(bundle)
         model = kernels.cast_for_mc(bundle.model.eval(), self.mc_dtype())
-        batch_index = [0]
 
         def score_batch(batch):
             total = None
             for j, mode in enumerate(modes):
                 gen = kernels.mc_generator(
-                    seed, len(modes) * batch_index[0] + j, self.device)
+                    seed, len(modes) * batch["index"] + j, self.device)
                 maps = kernels.mc_vote_entropy_maps(
                     model, batch["image"], batch["label"], gen,
                     self.dataset_num_classes, constants.MC_STEPS, mode,
                     fused_upsample=True, compute_dtype=self.mc_dtype(),
                     labels_packed=True)
                 total = maps if total is None else total + maps
-            batch_index[0] += 1
             return total
         return score_batch
 
@@ -121,11 +159,10 @@ class ActiveSelectionMC(ActiveSelectionBase):
               modes=("dropout",)):
         """``images`` ranked by mean vote entropy (``_scorer``), the
         reference's stable descending sort, top ``selection_count``."""
-        loader = self._paths_loader(images, include_labels=True,
-                                    labels_as_mask=self.dataset_num_classes)
         scorer = self._scorer(bundle, seed, modes)
-        scores = collect_scores(loader, lambda batch: ent_ops.mean_over_pixels(
-            scorer(batch)))
+        scores = self._collect_scores(
+            images, lambda batch: ent_ops.mean_over_pixels(scorer(batch)),
+            include_labels=True, labels_as_mask=self.dataset_num_classes)
         return rank_descending(scores, list(images), selection_count)
 
     def _region_maps(self, bundle: ModelBundle, images, existing_regions,
@@ -140,18 +177,8 @@ class ActiveSelectionMC(ActiveSelectionBase):
                                     labels_as_mask=self.dataset_num_classes)
         return create_region_maps_from_scorer(
             self._scorer(bundle, seed, modes), loader, list(images),
-            existing_regions, region_size, selection_size, base_size)
-
-
-def collect_scores(loader, score_batch_fn) -> list:
-    """Drain a prefetched loader through a per-batch device scorer. The
-    per-batch results stay on the device until the sweep is done, so the
-    host never waits for the card inside the loop."""
-    pending = [(score_batch_fn(batch), batch["nvalid"]) for batch in loader]
-    scores = []
-    for out, nvalid in pending:
-        scores.extend(out[:nvalid].cpu().tolist())
-    return scores
+            existing_regions, region_size, selection_size, base_size,
+            mesh=self.mesh)
 
 
 def rank_descending(scores, images, selection_count):

@@ -26,10 +26,10 @@ class ActiveSelectionCoreSet(ActiveSelectionBase):
         self._check_bundle(bundle)
         model = bundle.model.eval()
         kernel, stride = POOLING[model.model_name]
-        chunks = [kernels.pooled_features(model, batch["image"], kernel,
-                                          stride)[:batch["nvalid"]]
-                  for batch in self._paths_loader(images, include_labels=False)]
-        return torch.cat(chunks)
+        return self._collect_rows(
+            images, lambda batch: kernels.pooled_features(
+                model, batch["image"], kernel, stride)[:batch["nvalid"]],
+            include_labels=False)
 
     def get_k_center_greedy_selections(self, selection_size,
                                        bundle: ModelBundle,

@@ -10,7 +10,8 @@ the mean over the crop).
 
 Features are taken on the device with TF32 off and stay there: the tile
 and region means are formed on the card and only the picks cross to the
-host.
+host. With a mesh each rank takes the features of its scoring batches,
+and every rank gathers them all and runs the same greedy pass (``base``).
 """
 
 from __future__ import annotations
@@ -43,53 +44,55 @@ class ActiveSelectionMaxSubset(ActiveSelectionBase):
                 list_regions.append(r)
         return list_images, list_regions
 
-    def _batches(self, bundle: ModelBundle, images):
+    def _features(self, bundle: ModelBundle, images, row_fn) -> torch.Tensor:
+        """``row_fn(model, batch)`` -> the batch's feature rows, over the
+        image-only scoring batches of ``images`` (``_collect_rows``)."""
         self._check_bundle(bundle)
-        return bundle.model.eval(), self._paths_loader(images,
-                                                       include_labels=False)
+        model = bundle.model.eval()
+        return self._collect_rows(images, lambda batch: row_fn(model, batch),
+                                  include_labels=False)
 
     def _get_features_for_images(self, bundle: ModelBundle,
                                  images) -> torch.Tensor:
-        model, loader = self._batches(bundle, images)
-        return torch.cat([kernels.pooled_features(model, batch["image"], 64,
-                                                  32)[:batch["nvalid"]]
-                          for batch in loader])
+        return self._features(bundle, images, lambda model, batch: (
+            kernels.pooled_features(model, batch["image"], 64,
+                                    32)[:batch["nvalid"]]))
 
     def _get_features_for_image_regions(self, bundle: ModelBundle, images,
                                         region_size) -> torch.Tensor:
         """Mean features of the grid tiles of each image's feature map
         (max_subset.py:49-71), (image, tile row, tile column) order."""
-        model, loader = self._batches(bundle, images)
-        feats = []
-        for batch in loader:
+        def tile_means(model, batch):
             fmap = kernels.raw_features(model, batch["image"])[:batch["nvalid"]]
             b, fh, fw, c = fmap.shape
             h = math.floor(region_size * fh / self.crop_size)
             w = math.floor(region_size * fw / self.crop_size)
             rows, cols = fh // h, fw // w
             tiles = fmap[:, :rows * h, :cols * w].reshape(b, rows, h, cols, w, c)
-            feats.append(tiles.mean(dim=(2, 4)).reshape(-1, c))
-        return torch.cat(feats)
+            return tiles.mean(dim=(2, 4)).reshape(-1, c)
+
+        return self._features(bundle, images, tile_means)
 
     def _get_features_for_regions(self, bundle: ModelBundle, list_images,
                                   list_regions) -> torch.Tensor:
         """Mean features of each region's crop of its image's feature map
         (max_subset.py:91-113); a crop is at least one cell each way."""
-        model, loader = self._batches(bundle, list_images)
-        feats = []
-        regions = iter(list_regions)
-        for batch in loader:
+        def region_means(model, batch):
             fmap = kernels.raw_features(model, batch["image"])
             ratio_r = fmap.shape[1] / self.crop_size
             ratio_c = fmap.shape[2] / self.crop_size
-            for b in range(batch["nvalid"]):
-                region = next(regions)
+            first = batch["index"] * self.dataloader_batch_size
+            feats = []
+            for b, region in enumerate(
+                    list_regions[first:first + batch["nvalid"]]):
                 r = math.floor(region[0] * ratio_r)
                 c = math.floor(region[1] * ratio_c)
                 h = max(math.floor(region[2] * ratio_r), 1)
                 w = max(math.floor(region[3] * ratio_c), 1)
                 feats.append(fmap[b, r:r + h, c:c + w].mean(dim=(0, 1)))
-        return torch.stack(feats)
+            return torch.stack(feats)
+
+        return self._features(bundle, list_images, region_means)
 
     def get_representative_images(self, bundle: ModelBundle, all_images,
                                   candidate_images):

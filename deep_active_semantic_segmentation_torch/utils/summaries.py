@@ -57,11 +57,32 @@ def _grid(images_nhwc: np.ndarray) -> np.ndarray:
     return np.transpose(row, (2, 0, 1))
 
 
+class NullWriter:
+    """The writer of a data-parallel rank other than 0, which writes no
+    file: the same calls, doing nothing, so that every rank runs the same
+    code (and draws the same host-stream numbers) whether or not it logs."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def add_image(self, tag, img, step):
+        pass
+
+    def close(self):
+        pass
+
+
 class TensorboardSummary:
-    def __init__(self, directory):
+    """``mesh``: on a data-parallel rank other than 0, ``create_summary``
+    gives a ``NullWriter``."""
+
+    def __init__(self, directory, mesh=None):
         self.directory = directory
+        self.writes = mesh is None or mesh.main
 
     def create_summary(self):
+        if not self.writes:
+            return NullWriter()
         if HAVE_TBX:
             return SummaryWriter(log_dir=self.directory)
         return JsonlWriter(self.directory)

@@ -24,7 +24,7 @@ import os
 
 from deep_active_semantic_segmentation_torch import resolve_device
 from deep_active_semantic_segmentation_torch.config import (
-    add_common_flags, config_from_args)
+    add_common_flags, config_from_args, refuse_multi_device)
 
 
 def main(argv=None, dataset_root=None, runs_root=None, device=None):
@@ -41,6 +41,7 @@ def main(argv=None, dataset_root=None, runs_root=None, device=None):
                         help="evaluate accuracy-predictor checkpoints "
                              "(seg + error head, tests.py:88-96)")
     ns = parser.parse_args(argv)
+    refuse_multi_device(ns.num_devices)
     cfg = config_from_args(ns).finalize(n_devices=1)
     device = resolve_device(device)
 

@@ -500,3 +500,103 @@ def test_evaluate_checkpoint_on_the_card_equals_the_cpu(cuda_device, tmp_path, m
     assert results["cuda"]["mIoU"] == results["cpu"]["mIoU"]
     assert results["cuda"]["epoch"] == 3
     assert abs(results["cuda"]["loss"] - results["cpu"]["loss"]) <= 1e-5 * results["cpu"]["loss"]
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A one-rank process group over NCCL on the card (the production
+    route of a data-parallel run), closed after the test."""
+    from deep_active_semantic_segmentation_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cuda", backend="nccl", timeout=120)
+    yield mesh
+    mesh.close()
+
+
+@pytest.mark.cuda
+def test_cross_replica_bn_at_world_one_equals_sync_and_plain_bn(nccl_mesh):
+    """Forward, backward and running statistics of CrossReplicaBatchNorm2d
+    at world 1 over NCCL against nn.SyncBatchNorm and BatchNorm2d on the
+    same f32 input (within 1e-5 of the largest: its f64 sums against
+    cuDNN's f32 ones)."""
+    from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+        CrossReplicaBatchNorm2d)
+
+    dev = nccl_mesh.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = 2 + 3 * torch.randn(8, 16, 33, 33, device=dev, generator=gen)
+    dy = torch.randn(x.shape, device=dev, generator=gen)
+    results = []
+    for bn in (CrossReplicaBatchNorm2d(16, nccl_mesh), torch.nn.SyncBatchNorm(16),
+               torch.nn.BatchNorm2d(16)):
+        bn = bn.to(dev).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 16))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, 16))
+        xg = x.clone().requires_grad_(True)
+        y = bn(xg)
+        (y * dy).sum().backward()
+        results.append([t.detach() for t in (y, xg.grad, bn.weight.grad, bn.bias.grad,
+                                             bn.running_mean, bn.running_var)])
+    for other in results[1:]:
+        for got, want in zip(results[0], other):
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_nccl_ddp_step_at_world_one_equals_the_plain_step(nccl_mesh):
+    """One DeepLab step through DistributedDataParallel with cross-replica
+    BN over the one-rank NCCL group against the plain one-card step, TF32
+    off: with BN at running statistics the same tensors; in train mode,
+    f64 (BN biases off the ReLU6 kinks), within 1e-9 of the largest
+    weight."""
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
+        constant_schedule)
+    from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+        convert_cross_replica_bn)
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import make_train_step
+
+    dev = nccl_mesh.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    image = torch.randint(0, 256, (4, 65, 65, 3), dtype=torch.uint8, device=dev,
+                          generator=gen)
+    label = torch.randint(0, 19, (4, 65, 65), device=dev, generator=gen).to(torch.uint8)
+    ref = build_model("deeplab", 19, mc_dropout=True, device=dev, generator=gen)
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    weights = ref.state_dict()
+    mean = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float64, device=dev)
+    std = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float64, device=dev)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for frozen, dtype, bar in ((True, torch.float32, 1e-6), (False, torch.float64, 1e-9)):
+            states, losses = [], []
+            for mesh in (nccl_mesh, None):
+                model = build_model("deeplab", 19, mc_dropout=True, device=dev)
+                model.load_state_dict(weights)
+                convert_cross_replica_bn(model.train(), mesh)
+                if frozen:
+                    for m in model.modules():
+                        if isinstance(m, torch.nn.BatchNorm2d):
+                            m.eval()
+                model.to(dtype)
+                x = image if dtype == torch.float32 else (image.double() / 255 - mean) / std
+                step = make_train_step(
+                    model, build_optimizer("SGD", param_groups(model, "deeplab")),
+                    build_loss("ce", mesh=mesh), constant_schedule(0.01), mesh=mesh)
+                losses.append(float(step({"image": x, "label": label}, 0)["loss"]))
+                states.append(model.state_dict())
+            assert abs(losses[0] - losses[1]) <= 1e-6 * losses[1]
+            scale = max(v.abs().max() for v in states[1].values() if v.is_floating_point())
+            err = max((states[0][k] - v).abs().max() for k, v in states[1].items()
+                      if v.is_floating_point())
+            assert err <= bar * scale, (frozen, float(err), float(scale))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -93,7 +93,16 @@ def test_parse_cli_gives_the_jax_config():
     got = got.finalize(n_devices=1)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert got.dtype == "bfloat16" and got.mc_dropout and got.epochs == 200
-    with pytest.raises(NotImplementedError, match="A15"):
+    # on 2 ranks: the JAX rules with the device count (auto batch 4 per
+    # device, lr scaled with it, sync_bn on); a count the run does not
+    # have is refused
+    random.seed(0)
+    ref = jx_config.parse_cli(CANONICAL + ["--num-devices", "2"]).finalize(n_devices=2)
+    random.seed(0)
+    got = pt_config.parse_cli(CANONICAL + ["--num-devices", "2"]).finalize(n_devices=2)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.batch_size == 8 and got.sync_bn
+    with pytest.raises(ValueError, match="--num-devices 2 in a run of 1 ranks"):
         pt_config.parse_cli(argv + ["--num-devices", "2"]).finalize()
 
 

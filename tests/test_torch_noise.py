@@ -37,7 +37,7 @@ from deep_active_semantic_segmentation_torch.selection import (
     ModelBundle, get_active_selection_class)
 from deep_active_semantic_segmentation_torch.selection import kernels as pt_kernels
 from deep_active_semantic_segmentation_torch.selection.base import (
-    collect_scores, rank_descending)
+    rank_descending)
 from deep_active_semantic_segmentation_tpu.data.loader import (
     PathsLoader as JaxPathsLoader)
 from deep_active_semantic_segmentation_tpu.data.store import (
@@ -197,9 +197,8 @@ def test_mc_noise_scorer_within_jax_seed_to_seed_band(pool, models, monkeypatch,
                                      CROP["deeplab"], BATCH, device="cpu")
     bundle = ModelBundle(port, torch.device("cpu"))
     scorer = sel._scorer(bundle, 5, sweeps)
-    port_scores = collect_scores(
-        sel._paths_loader(keys, include_labels=True, labels_as_mask=NUM_CLASSES),
-        lambda b: mean_over_pixels(scorer(b)))
+    port_scores = sel._collect_scores(keys, lambda b: mean_over_pixels(scorer(b)),
+                                      include_labels=True, labels_as_mask=NUM_CLASSES)
     _within_band(jax_scores, port_scores)
     top = getattr(sel, entry)(bundle, keys, 4, seed=5)
     assert top == rank_descending(port_scores, keys, 4) and len(set(top)) == 4

@@ -184,8 +184,10 @@ def test_every_model_trains_through_train_torch(dataset_root, tmp_path, monkeypa
 def test_train_torch_refuses_what_train_py_refuses(dataset_root, monkeypatch):
     with pytest.raises(SystemExit):
         pt_train.main(["--dataset", "active_cityscapes_image"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        pt_train.main(ARGV[:-2] + ["--num-devices", "2"], device="cpu")
+    # a global batch the ranks do not divide, before any rank starts
+    with pytest.raises(ValueError, match="does not divide over 2 ranks"):
+        pt_train.main(ARGV[:-2] + ["--num-devices", "2", "--batch-size", "3"],
+                      device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt_train.main(ARGV, dataset_root=dataset_root)

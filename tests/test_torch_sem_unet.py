@@ -356,5 +356,5 @@ def test_unet_train_torch_prints_the_jax_scripts_lines(sem_root, unet_weights,
     assert len(numbers) == 4 and all(np.isfinite(numbers))
     assert isinstance(optimizer, torch.optim.RMSprop)
     assert next(model.parameters()).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(NotImplementedError, match="A15b"):
         pt_cli.main(["--num-devices", "2"], dataset_root=sem_root, device="cpu")

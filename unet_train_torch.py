@@ -22,6 +22,7 @@ import random
 import torch
 
 from deep_active_semantic_segmentation_torch import resolve_device
+from deep_active_semantic_segmentation_torch.config import refuse_multi_device
 
 
 def build_unet_training(lr: float, device, generator=None):
@@ -83,11 +84,9 @@ def main(argv=None, dataset_root=None, device=None):
     parser.add_argument("--batch-size", type=int, default=2)
     parser.add_argument("--lr", type=float, default=0.001)
     parser.add_argument("--num-devices", type=int, default=None,
-                        help="one card; more than one is ROADMAP A15")
+                        help="one card; more than one is ROADMAP A15b")
     ns = parser.parse_args(argv)
-    if (ns.num_devices or 1) > 1:
-        raise NotImplementedError("the port runs on one card; more than one "
-                                  "device is ROADMAP A15")
+    refuse_multi_device(ns.num_devices)
     device = resolve_device(device)
 
     from deep_active_semantic_segmentation_torch.data.loader import Loader

@@ -20,7 +20,7 @@ import os
 
 from deep_active_semantic_segmentation_torch import resolve_device
 from deep_active_semantic_segmentation_torch.config import (
-    add_common_flags, config_from_args)
+    add_common_flags, config_from_args, refuse_multi_device)
 
 
 def main(argv=None, dataset_root=None, device=None):
@@ -32,6 +32,7 @@ def main(argv=None, dataset_root=None, device=None):
     parser.add_argument("--checkpoint", type=str, required=True,
                         help="checkpoint path to evaluate")
     ns = parser.parse_args(argv)
+    refuse_multi_device(ns.num_devices)
     cfg = config_from_args(ns).finalize(n_devices=1)
     device = resolve_device(device)
 
