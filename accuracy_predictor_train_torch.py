@@ -1,4 +1,5 @@
-"""Accuracy-predictor trainer CLI of the PyTorch port, on one CUDA card.
+"""Accuracy-predictor trainer CLI of the PyTorch port, on one or more CUDA
+cards.
 
 The same flags as ``accuracy_predictor_train.py`` (the JAX package's
 driver): the AL loop of the two-headed model (a DeepLab segmentation head
@@ -15,9 +16,18 @@ staged weight schedule for ``--no-end-to-end``, and the selection modes
         --active-batch-size 60 --use-balanced-weights --no-early-stop \\
         --active-selection-mode accuracy --min-improvement 0.0025
 
+It runs data-parallel on every visible card (``--num-devices N`` for N
+of them, one rank per card over NCCL), or on the ranks of
+``torchrun --nproc-per-node N accuracy_predictor_train_torch.py ...``, as
+``active_train_torch.py`` does: ``--batch-size`` is the global batch and
+must divide by N, both heads train on the ranks' rows with cross-replica
+batch norm, every rank scores its share of the pool and takes the same
+picks, and rank 0 writes the run's files.
+
 Datasets are read from ``$DASS_DATASET_ROOT`` and runs written to
 ``$DASS_RUNS`` (``datasets/`` and ``runs/`` under the current directory by
-default). On the CPU, call ``main(argv, device="cpu")``.
+default). On the CPU, call ``main(argv, device="cpu")`` (with
+``--num-devices 2``, two gloo ranks).
 
 The host stream is one ``random.Random`` seeded with ``--seed``: the
 pools' train transforms and the trainer's panel picks draw from it in the
@@ -28,9 +38,8 @@ import argparse
 import math
 import random
 
-from deep_active_semantic_segmentation_torch import resolve_device
 from deep_active_semantic_segmentation_torch.config import (
-    add_common_flags, config_from_args, refuse_multi_device)
+    add_common_flags, config_from_args)
 
 MODES = ("accuracy", "gradient", "uncertain", "uncertain_gradient")
 
@@ -51,6 +60,8 @@ def build_weight_schedules(epochs, weight_unet, staged):
 
 
 def parse_args(argv=None):
+    """The flags as an ``ExperimentConfig``, not yet finalized (the run's
+    ranks decide the auto batch and lr)."""
     parser = argparse.ArgumentParser(
         description="PyTorch accuracy-predictor training")
     add_common_flags(parser, selection_choices=list(MODES))
@@ -60,9 +71,7 @@ def parse_args(argv=None):
                         choices=["softmax", "argmax"])
     parser.add_argument("--no-end-to-end", action="store_true", default=False)
     parser.add_argument("--symmetry", action="store_true", default=False)
-    args = config_from_args(parser.parse_args(argv))
-    refuse_multi_device(args.num_devices)
-    return args.finalize(n_devices=1)
+    return config_from_args(parser.parse_args(argv))
 
 
 def check_mode(mode: str, dataset: str) -> None:
@@ -80,15 +89,38 @@ def check_mode(mode: str, dataset: str) -> None:
             f"(ROADMAP C, {mode} on region datasets)")
 
 
-def main(argv=None, device=None, dataset_root=None, runs_root=None):
-    """Run the loop on ``device`` (the CUDA card by default; callers that
-    mean the CPU say ``device="cpu"``). Returns ``{percent labeled: {mIoU,
-    Acc, Acc_class, FWIoU}}``, each round's best."""
+def main(argv=None, device=None, dataset_root=None, runs_root=None,
+         backend=None):
+    """Run the loop on ``device`` (every visible CUDA card by default;
+    callers that mean the CPU say ``device="cpu"``, and an indexed card
+    such as ``cuda:0`` holds every rank). ``backend``: the ranks'
+    process-group backend (NCCL on cards, gloo on the CPU by default).
+    Returns ``{percent labeled: {mIoU, Acc, Acc_class, FWIoU}}``, each
+    round's best, on one rank or a ``torchrun`` rank; None after spawning
+    ranks (``parallel.mesh.launch``)."""
+    from deep_active_semantic_segmentation_torch.parallel.mesh import (
+        launch, process_batch_slice)
+
     cfg = parse_args(argv)
+    check_mode(cfg.active_selection_mode, cfg.dataset)   # before any rank starts
+    if cfg.batch_size is not None and cfg.num_devices:
+        process_batch_slice(cfg.batch_size, 0, cfg.num_devices)
+    return launch(_run, (cfg, dataset_root, runs_root),
+                  num_devices=cfg.num_devices, device=device, backend=backend)
+
+
+def _run(mesh, cfg, dataset_root, runs_root):
+    """One rank's loop (``parallel.mesh.launch``): the config finalized for
+    the run's ranks, its seed rank 0's."""
+    from deep_active_semantic_segmentation_torch.parallel.mesh import (
+        process_batch_slice)
+
+    cfg = cfg.finalize(n_devices=mesh.world)
+    cfg.seed = mesh.broadcast_object(cfg.seed)
+    process_batch_slice(cfg.batch_size, mesh.rank, mesh.world)
     print(cfg)
     mode = cfg.active_selection_mode
-    check_mode(mode, cfg.dataset)
-    device = resolve_device(device)
+    device = mesh.device
     rng = random.Random(cfg.seed)
 
     from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
@@ -109,23 +141,22 @@ def main(argv=None, device=None, dataset_root=None, runs_root=None):
         cfg.dataset, cfg.base_size, cfg.crop_size, cfg.batch_size,
         cfg.workers, cfg.overfit, init_set=cfg.seed_set,
         memory_hog=cfg.memory_hog, dataset_root=dataset_root, seed=cfg.seed,
-        rng=rng, device=device)
+        rng=rng, mesh=mesh)
     cfg.nclass = nclass
 
-    saver = Saver(cfg, runs_root=runs_root)
+    saver = Saver(cfg, runs_root=runs_root, mesh=mesh)
     saver.save_experiment_config()
-    summary = TensorboardSummary(saver.experiment_dir)
+    summary = TensorboardSummary(saver.experiment_dir, mesh)
     writer = summary.create_summary()
 
     active_selector = ActiveSelectionAccuracy(
-        nclass, training_set.store, cfg.crop_size, cfg.batch_size,
-        device=device)
+        nclass, training_set.store, cfg.crop_size, cfg.batch_size, mesh=mesh)
     total_iterations = min(
         len(training_set.image_paths) // cfg.active_batch_size - 1,
         cfg.max_iterations)
 
     trainer = Trainer(cfg, train_loader, val_loader, nclass, device=device,
-                      dual_head=True, runs_root=runs_root, rng=rng)
+                      dual_head=True, runs_root=runs_root, rng=rng, mesh=mesh)
     trainer.initialize()
     region = cfg.dataset.endswith("_region")
 
@@ -181,7 +212,12 @@ def main(argv=None, device=None, dataset_root=None, runs_root=None):
 
         trainer.load_best_checkpoint()
         _select(cfg, mode, active_selector, trainer.bundle, training_set)
+        mesh.assert_same([training_set.current_image_paths,
+                          getattr(training_set, "current_paths_to_regions_map", None)],
+                         "the labeled pool after a selection")
     writer.close()
+    if trainer.writer is not None:   # the last round's
+        trainer.writer.close()
     return history
 
 

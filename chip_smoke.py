@@ -155,7 +155,24 @@
    step with cross-replica BN against the plain step (BN frozen: equal
    tensors; train mode: PR 8's bars). The two-ranks-on-one-card times are
    the cost of the collectives through the host, not a scaling result.
-14. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+14. Slice 11, the multi_rank_drivers phase: the four drivers that run on
+   N ranks since the two-headed trainer does, two gloo ranks sharing the
+   card (the step, the picks and the f64 SEM run also one rank per card
+   over NCCL where the machine shows two cards). One two-headed step (DeepLab-v3+/MobileNetV2 with the UNet error
+   head, 513², train-mode cross-replica BN, 2 rows per rank) against one
+   process on the same 4 images (f64 within 1e-12 of the largest weight,
+   f32 within 5e-4, bf16 loss within 1e-2; ms per rank); the four
+   accuracy_predictor_train.py modes' picks from one checkpoint, sharded,
+   equal to one process's; one 2-round accuracy_predictor_train_torch.main
+   on 2 ranks (selections 10 then 15); visualize_torch.main and
+   eval_series_torch.main --dual-head on 2 ranks against one rank (equal
+   metrics and validation_mIoUs.txt, byte-equal PNGs); the SEM trainer's
+   rank body on 2 ranks in f64 against one process (5 epochs at 512²,
+   batch 2, its batch-1 validation; 1e-4 relative) and
+   unet_train_torch.main on 2 ranks in f32; whether the lmdb binding
+   imports (where it does, a converted LMDB store through the factory).
+   No B1 or B2 launch there.
+15. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -3000,21 +3017,21 @@ def eval_series_phase(torch, seed: int, root: Path):
     return out
 
 
-def write_sem(root: Path, seed: int):
-    """``root/sem/{train,val}/{images,masks}``: SEM_TRAIN and SEM_VAL
-    grayscale PNGs of SEM_HW from ``seed`` (smoothed noise) with blocky
-    0/255 masks."""
+def write_sem(root: Path, seed: int, hw=SEM_HW, counts=(SEM_TRAIN, SEM_VAL)):
+    """``root/sem/{train,val}/{images,masks}``: ``counts`` grayscale PNGs
+    of ``hw`` (a multiple of 32) from ``seed`` (smoothed noise) with
+    blocky 0/255 masks."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
-    for split, n in (("train", SEM_TRAIN), ("val", SEM_VAL)):
+    for split, n in zip(("train", "val"), counts):
         for sub in ("images", "masks"):
             (root / "sem" / split / sub).mkdir(parents=True)
         for i in range(n):
-            img = np.kron(rng.randint(0, 256, (SEM_HW[0] // 8, SEM_HW[1] // 8)),
+            img = np.kron(rng.randint(0, 256, (hw[0] // 8, hw[1] // 8)),
                           np.ones((8, 8), np.int64))
-            img = np.clip(img + rng.randint(-12, 13, SEM_HW), 0, 255).astype(np.uint8)
-            mask = np.kron(rng.rand(SEM_HW[0] // 32, SEM_HW[1] // 32) > 0.5,
+            img = np.clip(img + rng.randint(-12, 13, hw), 0, 255).astype(np.uint8)
+            mask = np.kron(rng.rand(hw[0] // 32, hw[1] // 32) > 0.5,
                            np.ones((32, 32), bool)).astype(np.uint8) * 255
             Image.fromarray(img).save(root / "sem" / split / "images" / f"{i:03d}.png")
             Image.fromarray(mask).save(root / "sem" / split / "masks" / f"{i:03d}.png")
@@ -3743,6 +3760,463 @@ def multi_rank_phase(torch, seed: int, root: Path, store_root: Path, paths):
     return out
 
 
+# ------------------------------------------- slice 11: the drivers on N ranks
+
+# the accuracy predictor's run on 2 ranks (accuracy_predictor_train.py's
+# flags as ACC_ARGV, at the canonical 513² over the round's 20 Cityscapes
+# records, a global batch of 4: 2 rows per rank)
+MRD_ROWS = 2
+MRD_CROP = 513
+MRD_ACC_ARGV = ["--dataset", "active_cityscapes_image", "--backbone", "mobilenet",
+                "--crop-size", str(MRD_CROP), "--base-size", str(MRD_CROP),
+                "--batch-size", str(MR_WORLD * MRD_ROWS), "--lr", "0.007", "--epochs", "1",
+                "--eval-interval", "1", "--use-lr-scheduler", "--lr-scheduler", "step",
+                "--max-iterations", "2", "--active-batch-size", "5",
+                "--use-balanced-weights", "--workers", "0", "--no-early-stop",
+                "--active-selection-mode", "accuracy", "--weight-unet", "0.30",
+                "--weight-wrong-label-unet", "0.75"]
+# a two-headed f32 step (TF32 off) against one process, of the largest
+# weight: every f32 train-mode step of the predictor rounds ~1e-4 of the
+# largest weight away from the exact (f64) step in its first layers (the
+# CPU tests measured the 2-rank port 1.1e-4, JAX on a 2-device mesh
+# 9.4e-5), so the bar sits above that rounding; f64 is held to 1e-12
+MRD_F32_RTOL = 5e-4
+MRD_F64_RTOL = 1e-12
+MRD_BF16_RTOL = 1e-2
+# the SEM run on 2 ranks against one process, relative (in f64: see
+# f64_models)
+MRD_SEM_RTOL = 1e-4
+MRD_SEM_HW, MRD_SEM_COUNTS = (576, 640), (4, 3)
+
+
+@contextlib.contextmanager
+def stdout_to(path: Path):
+    """This process's fd 1, and so the stdout of every process it spawns
+    meanwhile (rank 0 of a launch prints there), into ``path``."""
+    import os
+
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "wb") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+@contextlib.contextmanager
+def f64_models():
+    """The port's ``build_model`` builds f64 models for the length of the
+    block (weights drawn as before, then cast; the f32 network input cast
+    on entry; the losses stay f32). The SEM trainer's RMSprop turns the
+    rounding noise of gradients that are 0 in exact arithmetic (the conv
+    biases ahead of train-mode BN) into steps of ~10 lr of either sign,
+    so two f32 runs part from their first step whatever their ranks; in
+    f64 that noise is far below RMSprop's eps."""
+    import torch
+
+    from deep_active_semantic_segmentation_torch.models import factory
+
+    build = factory.build_model
+
+    def build_f64(*args, **kwargs):
+        model = build(*args, **kwargs).double()
+        model.register_forward_pre_hook(lambda _, inputs: tuple(
+            x.double() if torch.is_tensor(x) else x for x in inputs))
+        return model
+
+    factory.build_model = build_f64
+    try:
+        yield
+    finally:
+        factory.build_model = build
+
+
+def _mrd_step(torch, state, batch, dtype: str, device, mesh=None):
+    """One two-headed SGD step (lr 0.01, dropout off, train-mode BN) of
+    the predictor loaded from ``state``, at the end-to-end weights
+    ACC_WEIGHTS, the error classes weighted [0.75, 0.25], on ``batch``
+    (this rank's rows with ``mesh``): in bf16 or f32 on the uint8 wire, or
+    with f64 weights and the image normalized in f64: (model, step, loss)."""
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
+        constant_schedule)
+    from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+        convert_cross_replica_bn)
+    from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_dual_train_step)
+
+    model = build_model("accuracy_predictor", NUM_CLASSES, device=device)
+    model.load_state_dict(state)
+    convert_cross_replica_bn(model.train(), mesh)
+    if dtype == "float64":
+        model.double()
+        mean = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float64, device=device)
+        std = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float64, device=device)
+        batch = dict(batch, image=(batch["image"].double() / 255.0 - mean) / std)
+    w_wrong = torch.tensor([0.75, 0.25], device=device)
+    step = make_dual_train_step(
+        model, build_optimizer("SGD", param_groups(model, "accuracy_predictor")),
+        build_loss("ce", mesh=mesh), build_loss("ce", class_weights=w_wrong, mesh=mesh),
+        constant_schedule(0.01), compute_dtype="float32" if dtype == "float64" else dtype,
+        mesh=mesh)
+    return model, step, float(step(batch, 0, *ACC_WEIGHTS)["loss"])
+
+
+def _mrd_picks(torch, state, store, paths, crop: int, device, mesh=None) -> dict:
+    """The four accuracy_predictor_train.py modes' 5 picks over ``paths``
+    at ``crop`` with the predictor loaded from ``state`` (scoring batches
+    of 4, each rank its share with ``mesh``)."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.selection import (
+        ActiveSelectionAccuracy, ModelBundle)
+
+    model = build_model("accuracy_predictor", NUM_CLASSES, device=device)
+    model.load_state_dict(state)
+    bundle = ModelBundle(model.eval(), torch.device(device))
+    sel = ActiveSelectionAccuracy(NUM_CLASSES, store, crop, MR_WORLD * MRD_ROWS,
+                                  device=device, mesh=mesh)
+    return {"accuracy": sel.get_least_accurate_samples(bundle, paths, 5),
+            "gradient": sel.get_adversarially_vulnarable_samples(bundle, paths, 5),
+            "uncertain": sel.get_unsure_samples(bundle, paths, 5),
+            "uncertain_gradient": sel.get_adversarially_vulnarable_samples(
+                bundle, sel.get_unsure_samples(bundle, paths, 10), 5)}
+
+
+def _mrd_sem(mesh, sem_root: str, argv):
+    """The SEM trainer's rank body (``unet_train_torch.train``) with
+    ``argv`` in f64: its printed numbers per epoch."""
+    import unet_train_torch
+
+    text = io.StringIO()
+    with f64_models(), contextlib.redirect_stdout(text):
+        return unet_train_torch.train(mesh, unet_train_torch.parse_args(argv),
+                                      sem_root)[2]
+
+
+def multi_rank_drivers_worker(mesh, setup_path: str, out_dir: str) -> None:
+    """One rank of the multi_rank_drivers phase: the two-headed step on
+    its rows (f64 and f32 compared, bf16 compared and timed), the four
+    modes' picks from one checkpoint sharded over the ranks, and the SEM
+    trainer's f64 run. Saves ``rank<r>.pt`` in ``out_dir``."""
+    import torch
+
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+
+    setup = torch.load(setup_path, weights_only=False)
+    device = mesh.device
+    reset_counts()
+    rows = slice(mesh.rank * MRD_ROWS, (mesh.rank + 1) * MRD_ROWS)
+    batch = {k: torch.from_numpy(setup[k][rows]).to(device) for k in ("image", "label")}
+    out = {"rank": mesh.rank, "device": str(device)}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dtype in ("float64", "float32"):
+            model, _, out[f"{dtype}_loss"] = _mrd_step(torch, setup["predictor"], batch,
+                                                       dtype, device, mesh)
+            out[f"{dtype}_state"] = _state(model)
+            del model
+        out["picks"] = _mrd_picks(torch, setup["predictor"], DirectoryStore(setup["store"]),
+                                  setup["pool"], setup["crop"], device, mesh)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    model, step, out["bf16_loss"] = _mrd_step(torch, setup["predictor"], batch,
+                                              "bfloat16", device, mesh)
+    it = iter(range(1, 1 + MR_TIMED_STEPS))
+    out["bf16_step_ms"] = _device_ms(
+        torch, device, lambda: step(batch, next(it), *ACC_WEIGHTS), MR_TIMED_STEPS)
+    del model, step
+    torch.cuda.empty_cache()
+    out["sem"] = _mrd_sem(mesh, setup["sem_root"], setup["sem_argv"])
+    out["counts"] = read_counts()
+    torch.save(out, str(Path(out_dir) / f"rank{mesh.rank}.pt"))
+
+
+def _printed_metrics(text: str) -> str:
+    """visualize's metrics line in ``text``."""
+    return next(line for line in text.splitlines() if line.startswith("Acc:"))
+
+
+def multi_rank_drivers_phase(torch, seed: int, root: Path, paths):
+    """Slice 11: the four drivers that run on N ranks since this slice, two
+    gloo ranks sharing the card (and, for (a), (b)'s picks and (d)'s f64
+    run, one rank per card over NCCL where the machine shows two cards).
+    (a) One two-headed step (DeepLab-v3+/MobileNetV2 with the UNet error
+    head, 513², 19 classes, train-mode cross-replica BN, 2 rows per rank)
+    against one process on the same 4 images: f64, f32 (TF32 off), bf16,
+    and its ms per rank. (b) One 2-round accuracy_predictor_train_torch.main
+    on the round's 20 records (accuracy mode, 1 epoch, global batch 4) that
+    writes its selections; and the four modes' picks from one fixed
+    checkpoint, sharded, equal to one process's. (c) visualize_torch.main
+    (a DeepLab checkpoint the phase writes) and eval_series_torch.main
+    --dual-head (the run of (b)) on 2 ranks: the metrics, the PNGs and
+    validation_mIoUs.txt equal a one-rank replay's whose forwards see the
+    same rows. (d) The SEM trainer's rank body at 512², batch 2, 5 epochs
+    (its batch-1 validation included) in f64 against one process, and
+    unet_train_torch.main on 2 ranks in f32. (e) Whether the lmdb binding
+    imports, and where it does a converted LMDB store through the
+    factory."""
+    import accuracy_predictor_train_torch
+    import eval_series_torch
+    import unet_train_torch
+    import visualize_torch
+    from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.parallel import mesh as pt_mesh
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed + 11)
+    n = MR_WORLD * MRD_ROWS
+    blocks, block = MR_STEP_BLOCKS, MR_STEP_BLOCK
+    label = np.kron(rng.randint(0, NUM_CLASSES, (n, blocks, blocks)),
+                    np.ones((1, block, block), np.int64)).astype(np.uint8)
+    label[:, :rng.randint(block // 3, block)] = 255
+    image = rng.randint(0, 256, label.shape + (3,), dtype=np.uint8)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    predictor = _state(_off_the_kinks(torch, build_model(
+        "accuracy_predictor", NUM_CLASSES, device=dev, generator=gen), gen))
+    sem_root = root / "sem_multi_rank"
+    write_sem(sem_root, seed + 11, MRD_SEM_HW, MRD_SEM_COUNTS)
+    store_root = root / "cityscapes" / "train"
+    pool = list(paths[SEED_SET:])
+    sem_argv = ["--epochs", str(SEM_EPOCHS), "--crop-size", str(SEM_CROP), "--batch-size",
+                str(SEM_BATCH)]
+    setup = {"image": image, "label": label, "predictor": predictor, "crop": MRD_CROP,
+             "store": str(store_root), "pool": pool, "sem_root": str(sem_root),
+             "sem_argv": sem_argv}
+    out = {}
+
+    # (a, b, d) the one-process references on the same card
+    batch = {"image": torch.from_numpy(image).to(dev),
+             "label": torch.from_numpy(label).to(dev)}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    ref = {}
+    try:
+        for dtype in ("float64", "float32"):
+            model, _, loss = _mrd_step(torch, predictor, batch, dtype, dev)
+            ref[dtype] = (loss, _state(model))
+            del model
+        t0 = time.perf_counter()
+        ref_picks = _mrd_picks(torch, predictor, DirectoryStore(str(store_root)), pool,
+                               MRD_CROP, DEVICE)
+        picks_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    model, step, ref_bf16 = _mrd_step(torch, predictor, batch, "bfloat16", dev)
+    it = iter(range(1, 1 + MR_TIMED_STEPS))
+    one_ms = _device_ms(torch, dev, lambda: step(batch, next(it), *ACC_WEIGHTS),
+                        MR_TIMED_STEPS)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref_sem = _mrd_sem(pt_mesh.make_mesh(device=DEVICE), str(sem_root), sem_argv)
+    sem_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    setup_path = root / "multi_rank_drivers_setup.pt"
+    torch.save(setup, str(setup_path))
+    routes = [("gloo", MR_SHARED_DEVICE)]
+    if torch.cuda.device_count() >= MR_WORLD:
+        routes.append(("nccl", None))
+    rank_counts = []
+    for backend, device in routes:
+        where = ("one card: collectives through the host, not scaling" if device
+                 else "one card each")
+        out_dir = root / f"multi_rank_drivers_{backend}"
+        out_dir.mkdir()
+        t0 = time.perf_counter()
+        pt_mesh.launch(multi_rank_drivers_worker, (str(setup_path), str(out_dir)),
+                       num_devices=MR_WORLD, device=device, backend=backend,
+                       timeout=MR_GROUP_S, join_timeout=MR_JOIN_S)
+        worker_s = time.perf_counter() - t0
+        ranks = [torch.load(str(out_dir / f"rank{r}.pt"), weights_only=False)
+                 for r in range(MR_WORLD)]
+        gaps = {}
+        for dtype, bar in (("float64", MRD_F64_RTOL), ("float32", MRD_F32_RTOL)):
+            loss, state = ref[dtype]
+            gaps[dtype] = (abs(ranks[0][f"{dtype}_loss"] - loss) / abs(loss),
+                           *_param_gaps(ranks[0][f"{dtype}_state"], state))
+            same = all(torch.equal(ranks[0][f"{dtype}_state"][k],
+                                   ranks[1][f"{dtype}_state"][k]) for k in state)
+            print(f"multi-rank drivers ({backend}, {MR_WORLD} ranks on {where}): "
+                  f"two-headed {dtype} step (DeepLab-MobileNetV2 + UNet error head, 513², "
+                  f"train-mode BN) on {MRD_ROWS} rows per rank vs one process on {n}: loss "
+                  f"rel {gaps[dtype][0]:.2e}; parameters {gaps[dtype][1]:.2e} of the "
+                  f"largest weight (bar {bar}), worst tensor {gaps[dtype][2]:.2e} of its "
+                  f"own; ranks' tensors equal: {same}", flush=True)
+            check(same, f"{backend} two-headed {dtype}: both ranks hold the same weights "
+                        "and BN buffers")
+            check(gaps[dtype][0] <= CPU_LOSS_RTOL and gaps[dtype][1] <= bar,
+                  f"{backend}: the 2-rank two-headed {dtype} step equals one process's")
+        bf16_rel = abs(ranks[0]["bf16_loss"] - ref_bf16) / abs(ref_bf16)
+        step_ms = [r["bf16_step_ms"] for r in ranks]
+        print(f"  bf16 loss rel {bf16_rel:.2e} (bar {MRD_BF16_RTOL}); bf16 step per rank "
+              f"{[round(x, 1) for x in step_ms]} ms (one process on {n} images: "
+              f"{one_ms:.1f} ms); on {card_line()}", flush=True)
+        check(ranks[0]["bf16_loss"] == ranks[1]["bf16_loss"] and bf16_rel <= MRD_BF16_RTOL,
+              f"{backend}: the two-headed bf16 loss is the global batch's on both ranks")
+        same_picks = all(r["picks"] == ref_picks for r in ranks)
+        print(f"  the four modes' picks over {len(pool)} records from one checkpoint, "
+              f"sharded over {MR_WORLD} ranks, equal one process's: {same_picks} "
+              f"(one process: {picks_s:.3f} s)", flush=True)
+        check(same_picks, f"{backend}: the four modes' 2-rank picks equal one process's: "
+                          f"{[r['picks'] for r in ranks]} vs {ref_picks}")
+        sem_rel = max(abs(x - y) / abs(y) for r in ranks
+                      for row, ref_row in zip(r["sem"], ref_sem)
+                      for x, y in zip(row[1:], ref_row[1:]) if y is not None)
+        print(f"  SEM trainer (UNet(1, 2), 512², batch 2, {SEM_EPOCHS} epochs, f64) on "
+              f"{MR_WORLD} ranks vs one process: largest relative gap of its printed "
+              f"numbers {sem_rel:.2e} (bar {MRD_SEM_RTOL}); validation {ref_sem[-1][3:]}; "
+              f"one process {sem_s:.3f} s; the worker spawn {worker_s:.3f} s", flush=True)
+        check(all([row[0] for row in r["sem"]] == [row[0] for row in ref_sem]
+                  for r in ranks)
+              and ref_sem[-1][3] is not None and sem_rel <= MRD_SEM_RTOL,
+              f"{backend}: the 2-rank SEM run equals one process's")
+        out[f"{backend}_ranks"] = dict(
+            gaps=gaps, bf16_rel=bf16_rel, bf16_step_ms_per_rank=step_ms,
+            sem_rel=sem_rel, worker_s=worker_s)
+        rank_counts += [r["counts"] for r in ranks]
+    out.update(one_process_bf16_step_ms=one_ms, picks=ref_picks, rank_counts=rank_counts)
+
+    # (b) one 2-round run through the driver on 2 ranks
+    runs = root / "runs_multi_rank_drivers"
+    argv = MRD_ACC_ARGV + ["--seed", str(seed), "--checkname", "acc_2ranks"]
+    t0 = time.perf_counter()
+    with stdout_to(root / "acc_2ranks.out"):
+        accuracy_predictor_train_torch.main(argv + ["--num-devices", str(MR_WORLD)],
+                                            device=MR_SHARED_DEVICE, backend="gloo",
+                                            dataset_root=str(root), runs_root=str(runs))
+    acc_s = time.perf_counter() - t0
+    exp = runs / "active_cityscapes_image" / "acc_2ranks"
+    lines = [len(rows) for rows in read_selections(exp).values()]
+    print(f"2-rank accuracy_predictor_train_torch.main (accuracy, 2 rounds, global batch "
+          f"{n}): {acc_s:.3f} s; selections {lines}", flush=True)
+    check(lines == [SEED_SET, SEED_SET + 5], f"the 2-rank accuracy run's selections {lines}")
+
+    # (c) replays on 2 ranks against one rank: a DeepLab checkpoint the
+    # phase writes (random weights) and the run of (b). On the card a
+    # forward's rounding depends on its batch size (cuDNN picks other
+    # kernels), so the 2-rank replay at a global batch of 4 (2 rows per
+    # rank) is held against one rank at a batch of 2, the rows each
+    # forward sees; one rank at a batch of 4 is printed beside them
+    from deep_active_semantic_segmentation_torch.utils.checkpoint import save_checkpoint
+
+    deeplab = _off_the_kinks(torch, build_model("deeplab", NUM_CLASSES, backbone="mobilenet",
+                                                device=dev, generator=gen), gen)
+    replays = {"ranks": (MR_WORLD, n), "one": (1, MRD_ROWS), "one_batch4": (1, n)}
+    for name in replays:
+        (root / f"replay_{name}").mkdir()
+        save_checkpoint(str(root / f"replay_{name}" / "best.ckpt"), deeplab, None, 1, 0.0)
+        shutil.copytree(exp, root / f"replay_{name}" / "acc")
+    del deeplab
+    vis_argv = ["--dataset", "active_cityscapes_image", "--backbone", "mobilenet",
+                "--crop-size", str(MRD_CROP), "--base-size", str(MRD_CROP), "--workers",
+                "0", "--seed", str(seed)]
+    series_argv = [a for i, a in enumerate(MRD_ACC_ARGV) if a not in ACC_CLI_FLAGS
+                   and (i == 0 or MRD_ACC_ARGV[i - 1] not in ACC_CLI_FLAGS)] + [
+        "--seed", str(seed), "--dual-head"]
+    replay = {}
+    for name, (world, batch_size) in replays.items():
+        where = root / f"replay_{name}"
+        flags = ["--num-devices", str(world), "--batch-size", str(batch_size)]
+        kwargs = dict(device=MR_SHARED_DEVICE, backend="gloo" if world > 1 else None)
+        t0 = time.perf_counter()
+        with stdout_to(where / "visualize.out"):
+            visualize_torch.main(vis_argv + flags + ["--checkpoint", str(where / "best.ckpt")],
+                                 dataset_root=str(root), **kwargs)
+            vis_s = time.perf_counter() - t0
+            eval_series_torch.main(series_argv + flags + ["--experiment-dir",
+                                                          str(where / "acc")],
+                                   dataset_root=str(root), **kwargs)
+        folder = where / "visualizations"
+        # each PNG under its name at a batch of MRD_ROWS (image g of the
+        # split is img_{g // rows}_{g % rows})
+        pngs = {}
+        for png in folder.iterdir():
+            kind, b, i = png.stem.split("_")
+            g = int(b) * batch_size + int(i)
+            pngs[f"{kind}_{g // MRD_ROWS:04d}_{g % MRD_ROWS:02d}.png"] = png.read_bytes()
+        replay[name] = {"visualize_s": vis_s,
+                        "eval_series_s": time.perf_counter() - t0 - vis_s,
+                        "metrics": _printed_metrics((where / "visualize.out").read_text()),
+                        "table": (where / "acc" / "validation_mIoUs.txt").read_bytes(),
+                        "pngs": pngs}
+    ranks_, one, batch4 = replay["ranks"], replay["one"], replay["one_batch4"]
+    same_pngs = ranks_["pngs"] == one["pngs"] and len(one["pngs"]) == 3 * VAL
+    differ4 = sorted(k for k in one["pngs"] if one["pngs"][k] != batch4["pngs"].get(k))
+    print(f"2-rank replays (global batch {n}, {MRD_ROWS} rows per rank) vs one rank at "
+          f"batch {MRD_ROWS}: visualize_torch {ranks_['visualize_s']:.3f} s (one rank "
+          f"{one['visualize_s']:.3f} s), {len(ranks_['pngs'])} PNGs byte-equal: "
+          f"{same_pngs}; metrics equal: {ranks_['metrics'] == one['metrics']}; "
+          f"eval_series_torch --dual-head {ranks_['eval_series_s']:.3f} s (one rank "
+          f"{one['eval_series_s']:.3f} s), validation_mIoUs.txt equal: "
+          f"{ranks_['table'] == one['table']}. One rank at batch {n} against batch "
+          f"{MRD_ROWS}: {len(differ4)} PNGs differ ({differ4[:4]}...), metrics equal: "
+          f"{batch4['metrics'] == one['metrics']}, table equal: "
+          f"{batch4['table'] == one['table']}", flush=True)
+    check(same_pngs, f"the 2-rank PNGs equal one rank's: {sorted(ranks_['pngs'])} vs "
+                     f"{sorted(one['pngs'])}")
+    check(ranks_["metrics"] == one["metrics"],
+          f"the 2-rank replay's metrics equal one rank's: {ranks_['metrics']} vs "
+          f"{one['metrics']}")
+    check(ranks_["table"] == one["table"] and len(one["table"].splitlines()) == 2,
+          "the 2-rank validation_mIoUs.txt equals one rank's")
+    out["replay"] = {k: {m: v for m, v in r.items() if m not in ("table", "pngs")}
+                     for k, r in replay.items()}
+    out["replay"]["batch4_pngs_differing"] = len(differ4)
+
+    # (d) the SEM trainer's entry point on 2 ranks, f32
+    t0 = time.perf_counter()
+    with stdout_to(root / "unet_2ranks.out"):
+        unet_train_torch.main(sem_argv + ["--num-devices", str(MR_WORLD)],
+                              dataset_root=str(sem_root), device=MR_SHARED_DEVICE,
+                              backend="gloo")
+    unet_s = time.perf_counter() - t0
+    lines = (root / "unet_2ranks.out").read_text().splitlines()
+    numbers = []
+    for token in " ".join(lines[1:]).split():
+        with contextlib.suppress(ValueError):
+            numbers.append(float(token))
+    print(f"2-rank unet_train_torch.main (f32): {unet_s:.3f} s; {lines[-1]}", flush=True)
+    check(lines[0] == "Initializing Training!" and len(lines) == SEM_EPOCHS + 2
+          and lines[-1].startswith("Val loss:") and len(numbers) == 2 * 6 + SEM_EPOCHS
+          and bool(np.isfinite(numbers).all()),
+          f"the 2-rank unet_train_torch prints its lines: {lines}")
+
+    # (e) the lmdb binding
+    from deep_active_semantic_segmentation_torch.data import store as pt_store
+
+    print(f"lmdb binding imports: {pt_store.HAVE_LMDB}", flush=True)
+    out["lmdb"] = {"binding": pt_store.HAVE_LMDB}
+    if pt_store.HAVE_LMDB:
+        from deep_active_semantic_segmentation_torch.data import convert as pt_convert
+        from deep_active_semantic_segmentation_torch.data.factory import make_dataloader
+
+        sources = write_raw_datasets(root / "lmdb_raw", seed)
+        lmdb_root = root / "lmdb_datasets"
+        (lmdb_root / "cityscapes").mkdir(parents=True)
+        for split in ("train", "val"):
+            pt_convert.main(["cityscapes", str(sources[0]), split,
+                             str(lmdb_root / "cityscapes" / f"{split}.db"), "--lmdb",
+                             "--seed-set-count", "2"])
+        train_set, _, val_loader, _, _ = make_dataloader(
+            "active_cityscapes_image", 513, 513, 2, dataset_root=str(lmdb_root),
+            device=DEVICE)
+        batches = list(val_loader)
+        check(isinstance(train_set.store, pt_store.LmdbStore) and len(batches) >= 1,
+              "a converted LMDB store loads through the factory")
+        out["lmdb"]["val_batches"] = len(batches)
+    out.update(accuracy_main_s=acc_s, unet_main_s=unet_s)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3926,6 +4400,16 @@ def main(argv=None) -> int:
                                       paths)
         multi_rank["counts"] = read_counts()
         phase_s["multi_rank"] = time.perf_counter() - t0
+        # slice 11: the drivers on N ranks; no launch of B1 or B2 here or
+        # in the worker's ranks
+        t0 = time.perf_counter()
+        reset_counts()
+        drivers = multi_rank_drivers_phase(torch, args.seed, tmp, paths)
+        drivers["counts"] = read_counts()
+        phase_s["multi_rank_drivers"] = time.perf_counter() - t0
+        for counts in [drivers["counts"]] + drivers["rank_counts"]:
+            check(not any(counts.values()),
+                  f"no B1 or B2 launch in the multi_rank_drivers phase: {counts}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -3970,6 +4454,9 @@ def main(argv=None) -> int:
             for route, r in multi_rank.items() if route.endswith("_ranks")
             for arch in ("deeplab", "enet")
             if PATHS[arch]["kernel"] == row["name"]}
+        row["multi_rank_drivers_launches"] = {
+            "this process": drivers["counts"][row["name"]],
+            "worker ranks": [c[row["name"]] for c in drivers["rank_counts"]]}
     check(paths_result["deeplab_resnet50"]["launches"] == 80,
           "B1 launched 80 times in the ResNet-50 variance query")
 
@@ -3983,7 +4470,8 @@ def main(argv=None) -> int:
              "training": training, "al_round": al_round, "region": region,
              "ceal": ceal, "noise": noise, "representative": representative,
              "greedy": greedy, "oracle": oracle, "accuracy": accuracy,
-             "zoo": zoo, "replay": replay, "multi_rank": multi_rank},
+             "zoo": zoo, "replay": replay, "multi_rank": multi_rank,
+             "multi_rank_drivers": drivers},
             indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}

@@ -21,11 +21,9 @@ and kept in the configuration; what each does in the port:
 * ``--sync-bn``: accepted; on more than one rank the batch norms are
   always cross-replica, as in the JAX package's global step.
 * ``--num-devices N``: N data-parallel ranks, one card each
-  (``parallel/mesh.py``), for ``active_train_torch.py`` and
-  ``train_torch.py``; omitted, every visible card. ``finalize(n)``
-  applies the auto batch and lr rules with the run's n ranks. The other
-  drivers run on one card and refuse more (``refuse_multi_device``,
-  ROADMAP A15b).
+  (``parallel/mesh.py``), in every driver; omitted, every visible card.
+  ``finalize(n)`` applies the auto batch and lr rules with the run's n
+  ranks.
 * ``--remat``: raises (``parallel/steps.make_train_step``).
 """
 
@@ -239,17 +237,7 @@ def add_common_flags(parser: argparse.ArgumentParser,
       help="the JAX package's f32 wire; no effect, the port ships uint8")
     a("--num-devices", type=int, default=None,
       help="data-parallel ranks, one card each (default: every visible "
-           "card); active_train_torch.py and train_torch.py only")
-
-
-def refuse_multi_device(num_devices: Optional[int]) -> None:
-    """The drivers that run on one card: more than one device is refused
-    (ROADMAP A15b)."""
-    if (num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"--num-devices {num_devices}: this driver runs on one card; "
-            "more than one is ROADMAP A15b (active_train_torch.py and "
-            "train_torch.py run data-parallel)")
+           "card)")
 
 
 def config_from_args(args: argparse.Namespace) -> ExperimentConfig:

@@ -2,11 +2,13 @@
 data/convert.py:30-136; parity: reference utils/cityscapes_to_lmdb.py and
 utils/pascal_to_lmdb.py).
 
-Write the port's ``DirectoryStore``: key = image path, value = the HxWx4
+Write a ``DirectoryStore``, or with ``--lmdb`` the reference's LMDB
+store (``LmdbStore``; it needs the ``lmdb`` binding, and without it
+raises as the JAX converter does): key = image path, value = the HxWx4
 uint8 ``np.dstack((rgb, label))``, each record byte-equal to the JAX
 converter's; Cityscapes labels are remapped from the 34 labelIds to the
 19 trainIds (the rest 255). A train split also gets a seed set,
-``seed_sets/set_0.txt`` beside the store. LMDB output is ROADMAP A16b.
+``seed_sets/set_0.txt`` beside the store.
 
     python -m deep_active_semantic_segmentation_torch.data.convert \\
         cityscapes <cityscapes root> train datasets/cityscapes/train
@@ -24,7 +26,8 @@ from pathlib import Path
 import numpy as np
 from PIL import Image
 
-from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+from deep_active_semantic_segmentation_torch.data.store import (
+    HAVE_LMDB, DirectoryStore, LmdbStore)
 from deep_active_semantic_segmentation_torch.utils.seed_tools import (
     create_initial_set, write_seed_set)
 
@@ -44,9 +47,11 @@ def cityscapes_class_map() -> np.ndarray:
     return table
 
 
-def _make_store(out_path: str, use_lmdb: bool) -> DirectoryStore:
+def _make_store(out_path: str, use_lmdb: bool):
     if use_lmdb:
-        raise NotImplementedError("LMDB stores are not ported yet (ROADMAP A16b)")
+        if not HAVE_LMDB:
+            raise RuntimeError("lmdb binding not available; use DirectoryStore")
+        return LmdbStore(out_path, readonly=False)
     return DirectoryStore(out_path, readonly=False)
 
 
@@ -119,8 +124,8 @@ def main(argv=None):
     parser.add_argument("split")
     parser.add_argument("out")
     parser.add_argument("--lmdb", action="store_true",
-                        help="the reference's LMDB format: ROADMAP A16b, "
-                             "raises")
+                        help="write the reference's LMDB format (needs the "
+                             "lmdb binding)")
     parser.add_argument("--seed-set-count", type=int, default=50,
                         help="train splits also emit seed_sets/set_0.txt "
                              "with this many paths (reference "

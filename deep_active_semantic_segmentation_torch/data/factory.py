@@ -4,8 +4,10 @@ and return tuple ``(train_set, train_loader, val_loader, None,
 num_classes)``.
 
 Ported: the passive datasets (``cityscapes``, ``pascal``) and the image-
-and region-level AL datasets (``active_{cityscapes,pascal}_{image,region}``)
-on a ``DirectoryStore``; LMDB stores are ROADMAP A16b.
+and region-level AL datasets (``active_{cityscapes,pascal}_{image,region}``),
+each split read from ``<split>.db`` (the reference's LMDB store) or
+``<split>/`` (a ``DirectoryStore``), in that order, as the JAX package
+looks them up.
 """
 
 from __future__ import annotations
@@ -18,16 +20,16 @@ from deep_active_semantic_segmentation_torch import constants, resolve_device
 from deep_active_semantic_segmentation_torch.data.loader import Loader
 from deep_active_semantic_segmentation_torch.data.pools import (
     CITYSCAPES, PASCAL, ActiveImagePool, ActiveRegionPool, PassivePool)
-from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
+from deep_active_semantic_segmentation_torch.data.store import open_store
 
 
 def _resolve_store(dataset_path: str, split: str):
-    """``<split>/`` as a DirectoryStore (``<split>.db`` is LMDB: A16)."""
-    directory = os.path.join(dataset_path, split)
-    if os.path.exists(os.path.join(directory, DirectoryStore.INDEX)):
-        return DirectoryStore(directory)
-    if os.path.exists(os.path.join(dataset_path, split + ".db")):
-        raise NotImplementedError("LMDB stores are not ported yet (ROADMAP A16b)")
+    """``<split>.db`` (LMDB) or ``<split>/`` (DirectoryStore), the first
+    that exists (the JAX package's factory.py:19-26)."""
+    for candidate in (os.path.join(dataset_path, split + ".db"),
+                      os.path.join(dataset_path, split)):
+        if os.path.exists(candidate):
+            return open_store(candidate)
     raise FileNotFoundError(f"no store for split '{split}' under {dataset_path}")
 
 

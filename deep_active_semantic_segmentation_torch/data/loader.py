@@ -49,7 +49,12 @@ class Loader:
     for byte, with ``nvalid`` its valid rows among them. The epoch order
     is the same; the other rows' transform draws are taken from the
     pool's host stream without decoding them (``pool.skip_item``), so the
-    stream stays where the one-rank Loader leaves it."""
+    stream stays where the one-rank Loader leaves it. A global batch
+    smaller than the world (the SEM trainer's validation batch of 1) gives
+    each rank one row: rank r < ``batch_size`` holds row r, every other
+    rank a pad row (``nvalid`` 0), so an eval step that sums over the
+    ranks sees the one-rank batch. Otherwise the ranks must divide the
+    batch."""
 
     def __init__(self, pool, batch_size: int, shuffle: bool = False,
                  seed: Optional[int] = None, device="cpu", rank: int = 0,
@@ -63,7 +68,8 @@ class Loader:
         self.device = torch.device(device)
         self._rng = np.random.RandomState(seed if seed is not None else 0)
         self.rank, self.world = rank, world
-        self.rows = process_batch_slice(batch_size, rank, world)
+        self.rows = ((rank, 1) if batch_size < world
+                     else process_batch_slice(batch_size, rank, world))
 
     def __len__(self):
         return (len(self.pool) + self.batch_size - 1) // self.batch_size

@@ -54,16 +54,26 @@ class SEMData:
     def __len__(self):
         return len(self.image_paths)
 
-    def get_item(self, index: int) -> Dict[str, np.ndarray]:
+    def skip_item(self, index: int):
+        """The host stream's draws that ``get_item(index)`` would take
+        (the train split's flip, then blur), taken without reading the
+        files (a data-parallel rank passing over another rank's rows);
+        ``get_item(index, draws)`` replays them. None on other splits."""
+        if self.split != "train":
+            return None
+        return self._flip.draw(), self._blur.draw()
+
+    def get_item(self, index: int, draws=None) -> Dict[str, np.ndarray]:
         """{'image': (crop, crop, 1) uint8, 'label': (crop, crop) uint8 in
-        {0, 1}}."""
+        {0, 1}}; ``draws`` as in ``skip_item``."""
         image = np.array(Image.open(self.image_paths[index]))
         mask = np.array(Image.open(self.mask_paths[index])) / 255.0
         # the JAX package's round trip of the mask through float
         sample = {"image": image, "label": (mask * 255).astype(np.uint8)}
         sample = self._scalecrop(sample)
         if self.split == "train":
-            sample = self._blur(self._flip(sample))
+            flip, blur = draws or (None, None)
+            sample = self._blur(self._flip(sample, flip), blur)
         image = np.asarray(sample["image"], np.uint8)
         label = (np.asarray(sample["label"]) == 255).astype(np.uint8)
         return {"image": image[..., None] if image.ndim == 2 else image,

@@ -92,9 +92,6 @@ class Trainer:
                  train_grids: bool = False, mesh=None):
         self.args = args
         self.mesh = mesh
-        if mesh is not None and mesh.distributed and dual_head:
-            raise NotImplementedError("the two-headed trainer runs on one "
-                                      "rank (ROADMAP A15b)")
         self.device = mesh.device if mesh is not None else resolve_device(device)
         for loader in (train_loader, val_loader):
             if loader.device != self.device:
@@ -168,14 +165,15 @@ class Trainer:
             unet_weights = torch.tensor([w_wrong, 1 - w_wrong],
                                         dtype=torch.float32, device=self.device)
             err_losses = [build_loss(args.loss_type, class_weights=unet_weights,
-                                     batch_average=average)
+                                     batch_average=average, mesh=self.mesh)
                           for average in (True, False)]
             self.train_step = make_dual_train_step(
                 self.model, self.optimizer, losses[0], err_losses[0], schedule,
                 compute_dtype=args.dtype, generator=self.generator,
-                remat=args.remat)
+                remat=args.remat, mesh=self.mesh)
             self.eval_step = make_dual_eval_step(self.model, self.nclass,
-                                                 losses[1], err_losses[1])
+                                                 losses[1], err_losses[1],
+                                                 mesh=self.mesh)
             self.unet_evaluator = Evaluator(2, self.device)
         else:
             self.train_step = make_train_step(

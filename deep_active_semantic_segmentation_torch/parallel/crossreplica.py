@@ -218,16 +218,18 @@ class CrossReplicaBatchNorm2d(nn.BatchNorm2d):
 def convert_cross_replica_bn(module: nn.Module, mesh) -> nn.Module:
     """Every ``layers.batch_norm`` (a plain ``BatchNorm2d``) in ``module``
     replaced, in place, by a ``CrossReplicaBatchNorm2d`` holding its
-    tensors; a no-op without a process group. Returns ``module``."""
+    tensors (on its device, in its dtype); a no-op without a process
+    group. Returns ``module``."""
     if mesh is None or not mesh.distributed:
         return module
     for name, child in module.named_children():
         if type(child) is nn.BatchNorm2d:
             new = CrossReplicaBatchNorm2d(child.num_features, mesh,
                                           eps=child.eps, momentum=child.momentum)
+            new.to(child.weight.device, child.weight.dtype)
             new.load_state_dict(child.state_dict())
             new.train(child.training)
-            setattr(module, name, new.to(child.weight.device))
+            setattr(module, name, new)
         else:
             convert_cross_replica_bn(child, mesh)
     return module

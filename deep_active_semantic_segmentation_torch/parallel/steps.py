@@ -28,7 +28,10 @@ its own cross-replica statistics and a divergence would show), its
 converts them), the loss is built with the mesh (global normalizers) and
 the dropout masks are the global batch's rows (``layers.dropout_rows``).
 The eval step all-reduces the confusion matrix and the valid count. The
-two-headed steps run on one rank (ROADMAP A15b).
+two-headed steps take ``mesh`` the same way: both losses (the
+segmentation CE and the error head's class-weighted CE) are built with
+it, and the dual eval step all-reduces both confusions and the valid
+count.
 """
 
 from __future__ import annotations
@@ -133,14 +136,16 @@ def make_dual_train_step(model, optimizer, seg_loss_fn: Callable,
                          err_loss_fn: Callable, schedule: Callable,
                          compute_dtype: str = "float32",
                          generator: Optional[torch.Generator] = None,
-                         remat: bool = False) -> Callable:
+                         remat: bool = False, mesh=None) -> Callable:
     """The two-headed step: ``step(batch, step_index, w_dl, w_un,
     total_iters=None, iters_per_epoch=None) -> {'loss', 'loss_dl',
     'loss_un': 0-d device tensors, 'lr': float}`` with loss = w_dl *
     seg_loss + w_un * err_loss, the error head's target from
     ``dual_unet_target``. ``err_loss_fn`` carries the error classes'
-    weights ([w_wrong, 1 - w_wrong]). Dropout, ``compute_dtype`` and
-    ``remat`` as in ``make_train_step``.
+    weights ([w_wrong, 1 - w_wrong]). Dropout, ``compute_dtype``,
+    ``remat`` and ``mesh`` as in ``make_train_step``; with ``mesh`` both
+    loss functions must be built with it, or the error head's gradient is
+    off by each rank's share of the valid pixels.
 
     Both terms are always in the graph: at w_dl = 0 (the staged schedule's
     last third) the segmentation head gets a zero gradient, not none, so
@@ -148,15 +153,18 @@ def make_dual_train_step(model, optimizer, seg_loss_fn: Callable,
     optimizer does (torch's SGD skips a parameter whose ``.grad`` is
     None)."""
     bf16 = _autocast_bf16(compute_dtype, remat)
+    net, rows = model, (0, 1)
+    if _distributed(mesh):
+        net, rows = _data_parallel(model, mesh), (mesh.rank, mesh.world)
 
     def step(batch, step_index: int, w_dl: float, w_un: float,
              total_iters: Optional[int] = None,
              iters_per_epoch: Optional[int] = None):
         image, label = ingest(batch)
         with torch.autocast(image.device.type, dtype=torch.bfloat16,
-                            enabled=bf16):
-            seg, err = model(image, use_dropout=generator is not None,
-                             generator=generator)
+                            enabled=bf16), dropout_rows(model, *rows):
+            seg, err = net(image, use_dropout=generator is not None,
+                           generator=generator)
         loss_dl = seg_loss_fn(seg.float(), label)
         loss_un = err_loss_fn(err.float(), dual_unet_target(seg, label))
         loss = w_dl * loss_dl + w_un * loss_un
@@ -172,13 +180,16 @@ def make_dual_train_step(model, optimizer, seg_loss_fn: Callable,
 
 
 def make_dual_eval_step(model, num_classes: int, seg_loss_fn: Callable,
-                        err_loss_fn: Callable) -> Callable:
+                        err_loss_fn: Callable, mesh=None) -> Callable:
     """``step(batch, nvalid, w_dl, w_un) -> {'loss', 'loss_dl', 'loss_un',
     'confusion', 'unet_confusion', 'pred', 'err_pred', 'unet_target'}`` in
     eval mode without gradients; both losses are built with
     ``batch_average=False`` and divided by ``nvalid``, as in
     ``make_eval_step``. ``unet_confusion`` is the 2-class confusion of the
-    error head's argmax against ``dual_unet_target``."""
+    error head's argmax against ``dual_unet_target``. ``mesh`` as in
+    ``make_eval_step`` (both loss functions built with it): the losses and
+    both confusions are the global batch's on every rank; ``pred``,
+    ``err_pred`` and ``unet_target`` stay this rank's rows."""
 
     @torch.no_grad()
     def step(batch, nvalid: int, w_dl: float, w_un: float):
@@ -186,13 +197,18 @@ def make_dual_eval_step(model, num_classes: int, seg_loss_fn: Callable,
         image, label = ingest(batch)
         seg, err = model(image)
         target = dual_unet_target(seg, label)
+        pred, err_pred = seg.argmax(dim=1), err.argmax(dim=1)
+        confusion = confusion_matrix(label, pred, num_classes)
+        unet_confusion = confusion_matrix(target, err_pred, 2)
+        if _distributed(mesh):
+            nvalid = mesh.all_reduce(torch.tensor(float(nvalid), device=seg.device))
+            mesh.all_reduce(confusion)
+            mesh.all_reduce(unet_confusion)
         loss_dl = seg_loss_fn(seg, label) / nvalid
         loss_un = err_loss_fn(err, target) / nvalid
-        pred, err_pred = seg.argmax(dim=1), err.argmax(dim=1)
         return {"loss": w_dl * loss_dl + w_un * loss_un,
                 "loss_dl": loss_dl, "loss_un": loss_un,
-                "confusion": confusion_matrix(label, pred, num_classes),
-                "unet_confusion": confusion_matrix(target, err_pred, 2),
+                "confusion": confusion, "unet_confusion": unet_confusion,
                 "pred": pred, "err_pred": err_pred, "unet_target": target}
 
     return step

@@ -600,3 +600,47 @@ def test_nccl_ddp_step_at_world_one_equals_the_plain_step(nccl_mesh):
             assert err <= bar * scale, (frozen, float(err), float(scale))
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_dual_step_on_two_ranks_sharing_the_card_equals_one_process(cuda_device, tmp_path):
+    """The accuracy predictor's two-headed step (DeepLab-MobileNetV2 and
+    the UNet error head, 21 classes at 65², train-mode cross-replica BN,
+    dropout from a generator on the card) on two gloo ranks sharing
+    ``cuda:0``, 2 rows each, against one process on the card on the 4
+    images: f64 weights, within 1e-9 of the largest weight."""
+    import numpy as np
+
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.parallel import mesh as pt_mesh
+    import torch_parallel_workers as workers
+
+    rng = np.random.RandomState(0)
+    gen = torch.Generator().manual_seed(11)
+    model = build_model("accuracy_predictor", 21, device="cpu", generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    label = np.kron(rng.randint(0, 21, (4, 5, 5)), np.ones((1, 13, 13), int)).astype(np.uint8)
+    label[0, :30] = 255
+    image = rng.randint(0, 256, label.shape + (3,), dtype=np.uint8)
+    setup = {"nclass": 21, "w_wrong": np.asarray([0.75, 0.25], np.float32),
+             "cw": rng.uniform(0.5, 2.0, 21).astype(np.float32), "dropout_seed": 7,
+             "deeplab": {"state_dict": model.state_dict(), "image": image, "label": label}}
+    torch.save(setup, str(tmp_path / "setup.pt"))
+    pt_mesh.launch(workers.dual_card_checks, (str(tmp_path / "setup.pt"), str(tmp_path)),
+                   num_devices=2, device="cuda:0", backend="gloo", timeout=120,
+                   join_timeout=300)
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    ref_loss, ref = workers.dual_train_step(
+        setup, None, torch.Generator(device=cuda_device).manual_seed(7), torch.float64,
+        device=cuda_device)
+    (loss0, sd0), (loss1, sd1) = (r["dropout_step"] for r in ranks)
+    assert loss0 == loss1 and all(torch.equal(sd0[k], sd1[k]) for k in sd0)
+    for k, v in ref_loss.items():
+        assert abs(loss0[k] - v) <= 1e-6 * abs(v), k
+    floats = [k for k, v in ref.items() if v.is_floating_point()]
+    scale = max(float(ref[k].abs().max()) for k in floats)
+    err = max(float((sd0[k] - ref[k]).abs().max()) for k in floats)
+    assert err <= 1e-9 * scale, (err, scale)

@@ -86,8 +86,10 @@ def test_visualize_replays_the_logged_miou(loop_run, capsys):
         # one img/tgt/prd triple per val image: 4 images in batches of 2
         assert pngs == sorted(f"{kind}_{b:04d}_{i:02d}.png" for kind in ("img", "tgt", "prd")
                               for b in range(2) for i in range(2))
-    with pytest.raises(NotImplementedError, match="A15b"):
-        visualize_torch.main(ARGV + ["--checkpoint", "x", "--num-devices", "2"],
+    # N ranks split each global batch by rows (test_torch_parallel_drivers.py);
+    # a batch they do not divide is refused before any rank starts
+    with pytest.raises(ValueError, match="does not divide over 3 ranks"):
+        visualize_torch.main(ARGV + ["--checkpoint", "x", "--num-devices", "3"],
                              dataset_root=root, device="cpu")
 
 

@@ -356,5 +356,8 @@ def test_unet_train_torch_prints_the_jax_scripts_lines(sem_root, unet_weights,
     assert len(numbers) == 4 and all(np.isfinite(numbers))
     assert isinstance(optimizer, torch.optim.RMSprop)
     assert next(model.parameters()).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A15b"):
-        pt_cli.main(["--num-devices", "2"], dataset_root=sem_root, device="cpu")
+    # N ranks: test_torch_parallel_drivers.py; a batch they do not divide
+    # is refused before any rank starts
+    with pytest.raises(ValueError, match="does not divide over 2 ranks"):
+        pt_cli.main(["--num-devices", "2", "--batch-size", "3"],
+                    dataset_root=sem_root, device="cpu")

@@ -1,5 +1,6 @@
 """Rank functions for the port's two-rank CPU tests
-(tests/test_torch_parallel.py, tests/test_torch_sharded_scoring.py).
+(tests/test_torch_parallel.py, tests/test_torch_sharded_scoring.py,
+tests/test_torch_dual_parallel.py, tests/test_torch_parallel_drivers.py).
 
 Each runs in a process that ``parallel.mesh.launch`` spawned (gloo, CPU),
 as ``fn(mesh, setup_path, out_dir)``: it reads its inputs from the torch
@@ -240,3 +241,125 @@ def failing_rank(mesh, setup_path, out_dir):
     if mesh.rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
     mesh.barrier()
+
+
+# ------------------------------------------------ the two-headed steps
+
+def dual_train_step(setup, mesh, generator=None, dtype=torch.float32,
+                    enet=False, weights=(0.7, 0.3), device="cpu"):
+    """One SGD step (lr 0.01, class-weighted CE, error classes [w_wrong,
+    1 - w_wrong]) of the setup's accuracy predictor on this rank's rows
+    (``mesh`` None: the whole batch, on ``device``); dropout from
+    ``generator``, f32 on the uint8 wire or f64 weights on a
+    host-normalized f64 image: ({loss, loss_dl, loss_un}, state_dict on
+    the host)."""
+    from deep_active_semantic_segmentation_torch.models.factory import (
+        build_model, param_groups)
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
+        constant_schedule)
+    from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+        convert_cross_replica_bn)
+    from deep_active_semantic_segmentation_torch.parallel.optim import (
+        build_optimizer)
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_dual_train_step)
+
+    key = "enet" if enet else "deeplab"
+    device = mesh.device if mesh is not None else torch.device(device)
+    model = build_model("accuracy_predictor", setup["nclass"], device=device,
+                        enet_head=enet)
+    model.load_state_dict(setup[key]["state_dict"])
+    convert_cross_replica_bn(model.train(), mesh)
+    model.to(dtype)
+    step = make_dual_train_step(
+        model, build_optimizer("SGD", param_groups(model, "accuracy_predictor")),
+        build_loss("ce", class_weights=torch.from_numpy(setup["cw"]).to(device),
+                   mesh=mesh),
+        build_loss("ce", class_weights=torch.from_numpy(setup["w_wrong"]).to(device),
+                   mesh=mesh),
+        constant_schedule(0.01), generator=generator, mesh=mesh)
+    image, label = setup[key]["image"], setup[key]["label"]
+    if dtype == torch.float64:
+        image = f64_image(image)
+    if mesh is not None:
+        image, label = _rows(mesh, image), _rows(mesh, label)
+    out = step({"image": torch.from_numpy(image).to(device),
+                "label": torch.from_numpy(label).to(device)}, 0, *weights)
+    return ({k: float(out[k]) for k in ("loss", "loss_dl", "loss_un")},
+            {k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+
+
+def dual_card_checks(mesh, setup_path, out_dir):
+    """The two-headed f64 step with dropout on this rank's rows on its
+    card (its generator seeded on the card)."""
+    setup = _load(setup_path)
+    gen = torch.Generator(device=mesh.device).manual_seed(setup["dropout_seed"])
+    _save(mesh, out_dir, {"dropout_step": dual_train_step(setup, mesh, gen,
+                                                          torch.float64)})
+
+
+def dual_checks(mesh, setup_path, out_dir):
+    """The two-headed train step (dropout off in f32; on, in f64; the
+    ENet-headed one at the staged schedule's (0, 1) in f64) and the dual
+    eval step on a padded partial batch, on this rank's rows."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_dual_eval_step)
+
+    setup = _load(setup_path)
+    out = {"step": dual_train_step(setup, mesh),
+           "dropout_step": dual_train_step(
+               setup, mesh, torch.Generator().manual_seed(setup["dropout_seed"]),
+               torch.float64),
+           "enet_step": dual_train_step(setup, mesh, dtype=torch.float64, enet=True,
+                                        weights=(0.0, 1.0))}
+    model = build_model("accuracy_predictor", setup["nclass"], device="cpu")
+    model.load_state_dict(setup["deeplab"]["state_dict"])
+    losses = [build_loss("ce", class_weights=torch.from_numpy(w), batch_average=False,
+                         mesh=mesh) for w in (setup["cw"], setup["w_wrong"])]
+    step = make_dual_eval_step(model, setup["nclass"], *losses, mesh=mesh)
+    label = _rows(mesh, setup["deeplab"]["eval_label"])
+    nvalid = int((label != 255).reshape(len(label), -1).any(1).sum())
+    ev = step({"image": torch.from_numpy(_rows(mesh, setup["deeplab"]["image"])),
+               "label": torch.from_numpy(label)}, nvalid, 0.7, 0.3)
+    out["eval"] = {k: float(ev[k]) for k in ("loss", "loss_dl", "loss_un")}
+    out["eval"].update(nvalid=nvalid, confusion=ev["confusion"].numpy(),
+                       unet_confusion=ev["unet_confusion"].numpy())
+    _save(mesh, out_dir, out)
+
+
+# ------------------------------------------------------------ the drivers
+
+def driver_checks(mesh, setup_path, out_dir):
+    """The rank bodies of the four drivers on this rank, as their ``main``
+    runs them on N ranks: accuracy_predictor_train_torch's loop in every
+    configuration of the setup (each selection made with the setup's
+    fixed weights), visualize_torch and eval_series_torch replays, and
+    unet_train_torch's SEM run in f64 (``chip_smoke.f64_models``).
+    Saves each's result."""
+    import accuracy_predictor_train_torch as acc_driver
+    import eval_series_torch
+    from chip_smoke import f64_models
+    import unet_train_torch
+    import visualize_torch
+    from deep_active_semantic_segmentation_torch.data import native
+    from deep_active_semantic_segmentation_torch.engine import trainer
+
+    native.set_num_threads(1)
+    setup = _load(setup_path)
+    trainer.Trainer.load_best_checkpoint = (
+        lambda self: self.model.load_state_dict(setup["state_dict"]))
+    out = {"accuracy": {}}
+    for name, argv in setup["accuracy_runs"].items():
+        out["accuracy"][name] = acc_driver._run(
+            mesh, acc_driver.parse_args(argv), setup["root"], setup["runs"])
+    out["visualize"] = visualize_torch._run(
+        mesh, *visualize_torch.parse_args(setup["visualize_argv"]), setup["root"])
+    out["eval_series"] = eval_series_torch._run(
+        mesh, *eval_series_torch.parse_args(setup["eval_series_argv"]), setup["root"])
+    with f64_models():
+        out["unet"] = unet_train_torch.train(
+            mesh, unet_train_torch.parse_args(setup["unet_argv"]), setup["sem_root"])[2]
+    _save(mesh, out_dir, out)

@@ -1,14 +1,19 @@
-"""The PyTorch port's multi-rank phase alone, on one card or on a host
+"""The PyTorch port's multi-rank phases alone, on one card or on a host
 with several.
 
-    python tools/multi_rank_torch.py [--out results.json]
+    python tools/multi_rank_torch.py [--phase multi_rank|multi_rank_drivers]
+                                     [--out results.json]
 
 Builds the kernels, writes chip_smoke.py's 20 synthetic Cityscapes-sized
-records and runs its ``multi_rank_phase``: two gloo ranks sharing card 0,
-one rank per card over NCCL where two cards or more are visible, and the
-NCCL route at world 1. With four cards or more it then runs
-``dryrun_multichip(4)`` and a 4-rank ``variance`` round (global batch 8)
-through ``active_train_torch.main`` over NCCL. Needs CUDA; imports no JAX.
+records and runs one of its phases. ``multi_rank`` (the default):
+``multi_rank_phase``, two gloo ranks sharing card 0, one rank per card
+over NCCL where two cards or more are visible, and the NCCL route at
+world 1; with four cards or more then ``dryrun_multichip(4)`` and a
+4-rank ``variance`` round (global batch 8) through
+``active_train_torch.main`` over NCCL. ``multi_rank_drivers``:
+``multi_rank_drivers_phase``, the two-headed step, the accuracy
+predictor's driver and picks, the replays and the SEM trainer on two gloo
+ranks sharing card 0. Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ sys.path.insert(0, str(REPO))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase", choices=["multi_rank", "multi_rank_drivers"],
+                    default="multi_rank")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args(argv)
 
@@ -48,11 +55,14 @@ def main(argv=None) -> int:
     try:
         _, paths = cs.write_dataset(tmp, 0)
         t0 = time.perf_counter()
-        out["phase"] = cs.multi_rank_phase(torch, 0, tmp, tmp / "cityscapes" / "train",
-                                           paths)
+        if args.phase == "multi_rank_drivers":
+            out["phase"] = cs.multi_rank_drivers_phase(torch, 0, tmp, paths)
+        else:
+            out["phase"] = cs.multi_rank_phase(torch, 0, tmp, tmp / "cityscapes" / "train",
+                                               paths)
         out["phase_s"] = time.perf_counter() - t0
         print(f"phase {out['phase_s']:.1f} s", flush=True)
-        if torch.cuda.device_count() >= 4:
+        if args.phase == "multi_rank" and torch.cuda.device_count() >= 4:
             t0 = time.perf_counter()
             out["dryrun4"] = dryrun_multichip(4, join_timeout=cs.MR_JOIN_S)
             out["dryrun4_s"] = time.perf_counter() - t0
