@@ -150,7 +150,7 @@
    launches summing to the one-process count; one 2-rank `variance` round
    through active_train_torch.main (--num-devices 2, a global batch of 8:
    selections 10 then 15, best.ckpt without 'module.' keys; the ranks
-   check their labeled pools against each other); dryrun_multichip(2).
+   check their labeled pools against each other).
    (b) The NCCL route at world 1: make_mesh(backend="nccl") and one DDP
    step with cross-replica BN against the plain step (BN frozen: equal
    tensors; train mode: PR 8's bars). The two-ranks-on-one-card times are
@@ -172,7 +172,20 @@
    unet_train_torch.main on 2 ranks in f32; whether the lmdb binding
    imports (where it does, a converted LMDB store through the factory).
    No B1 or B2 launch there.
-15. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+15. Slice 12, the spatial phase (parallel/spatial.py, the height-sharded
+   step): DeepLab-v3+/MobileNetV2 os16, 19 classes, at Cityscapes' full
+   1024x2048 frame, BN biases drawn off the ReLU6 kinks. Two gloo ranks
+   sharing the card as a (1x2) mesh (also one rank per card over NCCL
+   where two cards are visible), each on its 512 rows: the f64 step on 1
+   image (state within 1e-10 of the largest weight, BN running
+   statistics included; the f32 loss within 1e-6) and the f32 step on 2
+   images (TF32 off: loss within 1e-5, weights within 5e-4) against one
+   process on the whole images; the bf16 step's ms per rank and each
+   rank's peak memory against one process's. dryrun_multichip(2) in
+   JAX's (1x2) layout and on the data-only (2x1) mesh on the card, each
+   rank's B1 launches (its pool scoring) read from its line;
+   dryrun_multichip(4) over NCCL as (2x2) where four cards are visible.
+16. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -3415,11 +3428,13 @@ def _device_ms(torch, device, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def _mr_step(torch, state, batch, dtype: str, device, mesh=None, freeze=False):
+def _mr_step(torch, state, batch, dtype: str, device, mesh=None, freeze=False,
+             spatial=False):
     """One SGD step (lr 0.01, dropout off) of a DeepLab loaded from
-    ``state`` on ``batch`` (this rank's rows with ``mesh``): in bf16 or f32
-    on the uint8 wire, or with f64 weights and the image normalized in
-    f64 (the loss stays f32): (model, step function, the step's loss)."""
+    ``state`` on ``batch`` (this rank's rows with ``mesh``; with
+    ``spatial``, its band of them): in bf16 or f32 on the uint8 wire, or
+    with f64 weights and the image normalized in f64 (the loss stays
+    f32): (model, step function, the step's loss)."""
     from deep_active_semantic_segmentation_torch.models.factory import (
         build_model, param_groups)
     from deep_active_semantic_segmentation_torch.ops.losses import build_loss
@@ -3444,7 +3459,7 @@ def _mr_step(torch, state, batch, dtype: str, device, mesh=None, freeze=False):
     step = make_train_step(model, build_optimizer("SGD", param_groups(model, "deeplab")),
                            build_loss("ce", mesh=mesh), constant_schedule(0.01),
                            compute_dtype="float32" if dtype == "float64" else dtype,
-                           mesh=mesh)
+                           mesh=mesh, spatial=spatial)
     return model, step, float(step(batch, 0)["loss"])
 
 
@@ -3557,16 +3572,15 @@ def multi_rank_phase(torch, seed: int, root: Path, store_root: Path, paths):
     NCCL): the ResNet-50 step on 4 rows per rank against the one-process
     step on the same 8 images, the canonical MobileNetV2 and the ENet
     dropout queries sharded over the ranks against the one-process
-    queries, one 2-rank `variance` round through active_train_torch.main,
-    and dryrun_multichip(2). (b) The NCCL route at world 1: make_mesh with
-    NCCL, one DDP step with cross-replica BN against the plain step."""
+    queries and one 2-rank `variance` round through active_train_torch.main
+    (``dryrun_multichip`` runs in the spatial phase). (b) The NCCL route at
+    world 1: make_mesh with NCCL, one DDP step with cross-replica BN
+    against the plain step."""
     import active_train_torch
     from deep_active_semantic_segmentation_torch import constants
     from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
     from deep_active_semantic_segmentation_torch.models.factory import build_model
     from deep_active_semantic_segmentation_torch.parallel import mesh as pt_mesh
-    from deep_active_semantic_segmentation_torch.parallel.dryrun import (
-        dryrun_multichip)
     from deep_active_semantic_segmentation_torch.selection import (
         get_active_selection_class)
 
@@ -3715,11 +3729,6 @@ def multi_rank_phase(torch, seed: int, root: Path, store_root: Path, paths):
     check(len(list(exp.glob("run_*/selections.txt"))) == len(run_dirs),
           "one selections.txt per round")
     out["round"] = {"seconds": round_s, "selections": lines}
-    t0 = time.perf_counter()
-    out["dryrun"] = dryrun_multichip(MR_WORLD, device=MR_SHARED_DEVICE, backend="gloo",
-                                     join_timeout=MR_JOIN_S)
-    out["dryrun_s"] = time.perf_counter() - t0
-    check(out["dryrun"].endswith("OK"), "dryrun_multichip(2) on the card")
 
     # (b) the NCCL route at world 1: the production route builds and runs
     mesh = pt_mesh.make_mesh(device=DEVICE, backend="nccl", timeout=MR_GROUP_S)
@@ -4216,6 +4225,191 @@ def multi_rank_drivers_phase(torch, seed: int, root: Path, paths):
     out.update(accuracy_main_s=acc_s, unet_main_s=unet_s)
     return out
 
+# ---------------------------------------- slice 12: the spatial (height) axis
+
+# DeepLab-MobileNetV2 os16 at Cityscapes' full frame (what the spatial axis
+# is for: JAX's steps.py:100-101, "used for full-resolution inputs"),
+# 19 classes, full width; two gloo ranks sharing the card as a (1x2) mesh,
+# each holding 512 of the 1024 rows
+SP_HW = (1024, 2048)
+SP_IMAGES = 2              # the f32 and bf16 steps' images (f64: 1)
+SP_TIMED_STEPS = 3         # timed bf16 steps after the compared one
+SP_BLOCK = 128             # label blocks of 128 px; the top fifth ignored
+# bars against one process: the f64 step's state (BN running statistics
+# included) as the CPU tests hold it (1.3e-12 measured at side 64); every
+# port loss computes in f32, so an f64 step's loss is held to f32
+# rounding; f32 (TF32 off) as JAX's own spatial step against its
+# unsharded one (2.9e-4 of the largest weight): a half-height band has
+# cuDNN pick other kernels and round its sums in another order
+SP_F64_RTOL, SP_F64_LOSS_RTOL = 1e-10, 1e-6
+SP_F32_RTOL, SP_F32_LOSS_RTOL = 5e-4, 1e-5
+
+
+def _sp_batch(torch, setup, n: int, device, rows=slice(None)):
+    return {k: torch.from_numpy(setup[k][:n, rows]).to(device) for k in ("image", "label")}
+
+
+def _sp_steps(torch, setup, device, mesh=None) -> dict:
+    """The f64 step on 1 image and the f32 step on SP_IMAGES (TF32 off),
+    then the bf16 step on SP_IMAGES timed, with the peak memory each step
+    adds to what the process held: on the whole images (``mesh`` None) or
+    on this rank's band (the spatial step)."""
+    from deep_active_semantic_segmentation_torch.parallel.spatial import shard_rows
+
+    rows = slice(*shard_rows(SP_HW[0], mesh)) if mesh is not None else slice(None)
+    spatial = mesh is not None
+    out = {}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dtype, n in (("float64", 1), ("float32", SP_IMAGES)):
+            model, _, out[f"{dtype}_loss"] = _mr_step(
+                torch, setup["deeplab"], _sp_batch(torch, setup, n, device, rows),
+                dtype, device, mesh, spatial=spatial)
+            out[f"{dtype}_state"] = _state(model)
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    batch = _sp_batch(torch, setup, SP_IMAGES, device, rows)
+    model, step, out["bf16_loss"] = _mr_step(torch, setup["deeplab"], batch, "bfloat16",
+                                             device, mesh, spatial=spatial)
+    it = iter(range(1, 1 + SP_TIMED_STEPS))
+    out["bf16_step_ms"] = _device_ms(torch, device, lambda: step(batch, next(it)),
+                                     SP_TIMED_STEPS)
+    out["bf16_peak_gib"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_worker(mesh, setup_path: str, out_dir: str) -> None:
+    """One rank of the spatial phase: ``_sp_steps`` on its band. Saves
+    ``rank<r>.pt`` in ``out_dir``."""
+    import torch
+
+    setup = torch.load(setup_path, weights_only=False)
+    out = _sp_steps(torch, setup, mesh.device, mesh)
+    out.update(rank=mesh.rank, device=str(mesh.device))
+    torch.save(out, str(Path(out_dir) / f"rank{mesh.rank}.pt"))
+
+
+def _dryrun_launches(line: str) -> list:
+    """The per-rank B1 launches a dryrun_multichip line reports."""
+    return json.loads(line.split("upsample4_argmax_launches=")[1].split("]")[0] + "]")
+
+
+def spatial_phase(torch, seed: int, root: Path) -> dict:
+    """Slice 12: (a) the height-sharded DeepLab-MobileNetV2 step at
+    1024x2048 on two gloo ranks sharing the card as a (1x2) mesh (and one
+    rank per card over NCCL where two cards are visible) against one
+    process on the whole images: f64 and f32 (TF32 off) gaps, BN running
+    statistics, the bf16 step per rank and each rank's peak memory
+    against one process's. (b) dryrun_multichip(2) in JAX's layout
+    (1x2) and on the data-only (2x1) mesh, gloo ranks sharing the card,
+    with each rank's B1 launches; dryrun_multichip(4) over NCCL as (2x2)
+    where four cards are visible."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.parallel import mesh as pt_mesh
+    from deep_active_semantic_segmentation_torch.parallel.dryrun import (
+        dryrun_multichip)
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed)
+    h, w = SP_HW
+    label = np.kron(rng.randint(0, NUM_CLASSES, (SP_IMAGES, h // SP_BLOCK, w // SP_BLOCK)),
+                    np.ones((1, SP_BLOCK, SP_BLOCK), np.int64)).astype(np.uint8)
+    label[:, :h // 5] = 255       # ignored rows in rank 0's band only
+    image = rng.randint(0, 256, label.shape + (3,), dtype=np.uint8)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    setup = {"image": image, "label": label, "deeplab": {
+        "backbone": "mobilenet", "weights": _state(_off_the_kinks(torch, build_model(
+            "deeplab", NUM_CLASSES, backbone="mobilenet", mc_dropout=True, device=dev,
+            generator=gen), gen))}}
+    t0 = time.perf_counter()
+    ref = _sp_steps(torch, setup, dev)
+    out = {"one_process": {k: v for k, v in ref.items() if not k.endswith("_state")},
+           "one_process_s": time.perf_counter() - t0}
+    setup_path = root / "spatial_setup.pt"
+    torch.save(setup, str(setup_path))
+    routes = [("gloo", MR_SHARED_DEVICE)]
+    if torch.cuda.device_count() >= MR_WORLD:
+        routes.append(("nccl", None))
+    for backend, device in routes:
+        out_dir = root / f"spatial_{backend}"
+        out_dir.mkdir()
+        t0 = time.perf_counter()
+        pt_mesh.launch(spatial_worker, (str(setup_path), str(out_dir)),
+                       num_devices=MR_WORLD, device=device, backend=backend,
+                       timeout=MR_GROUP_S, join_timeout=MR_JOIN_S, spatial=MR_WORLD)
+        ranks = [torch.load(str(out_dir / f"rank{r}.pt"), weights_only=False)
+                 for r in range(MR_WORLD)]
+        route = out[f"{backend}_ranks"] = {"wall_s": time.perf_counter() - t0}
+        where = ("two ranks sharing the card: collectives through the host"
+                 if device else "one rank per card")
+        for dtype, n, bar, loss_bar in (("float64", 1, SP_F64_RTOL, SP_F64_LOSS_RTOL),
+                                        ("float32", SP_IMAGES, SP_F32_RTOL,
+                                         SP_F32_LOSS_RTOL)):
+            state = ref[f"{dtype}_state"]
+            got = ranks[0][f"{dtype}_state"]
+            loss_rel = abs(ranks[0][f"{dtype}_loss"] - ref[f"{dtype}_loss"]) / abs(
+                ref[f"{dtype}_loss"])
+            gap, worst = _param_gaps(got, state)
+            running = [k for k in state if "running_" in k]
+            bn_gap = max((got[k] - state[k]).abs().max().item()
+                         / state[k].abs().max().item() for k in running)
+            same = all(torch.equal(got[k], ranks[1][f"{dtype}_state"][k]) for k in state)
+            print(f"spatial ({backend}, (1x{MR_WORLD}) mesh, {where}): DeepLab-MobileNetV2 "
+                  f"{dtype} step at {h}x{w}, {n} image(s), {h // MR_WORLD} rows per rank, "
+                  f"vs one process on the whole image(s): loss rel {loss_rel:.2e} (bar "
+                  f"{loss_bar}); parameters {gap:.2e} of the largest weight (bar {bar}), "
+                  f"worst tensor {worst:.2e} of its own; BN running statistics "
+                  f"{bn_gap:.2e} of each buffer's largest; ranks equal: {same}",
+                  flush=True)
+            check(same, f"spatial {backend} {dtype}: both ranks hold the same state")
+            check(loss_rel <= loss_bar, f"spatial {backend} {dtype}: the loss is one "
+                                        "process's")
+            check(gap <= bar, f"spatial {backend} {dtype}: the updated state is one "
+                              "process's")
+            route[dtype] = {"loss_rel": loss_rel, "param_rel": gap, "worst_tensor": worst,
+                            "bn_running_rel": bn_gap}
+        bf16_rel = abs(ranks[0]["bf16_loss"] - ref["bf16_loss"]) / abs(ref["bf16_loss"])
+        route["bf16_loss_rel"] = bf16_rel
+        route["ranks"] = [{k: v for k, v in r.items() if not k.endswith("_state")}
+                          for r in ranks]
+        print(f"  bf16 loss rel {bf16_rel:.2e} (bar {MR_BF16_RTOL}); step per rank "
+              f"{[round(r['bf16_step_ms'], 1) for r in ranks]} ms (one process on the "
+              f"whole images {ref['bf16_step_ms']:.1f} ms); peak memory per rank "
+              f"{[round(r['bf16_peak_gib'], 3) for r in ranks]} GiB (one process "
+              f"{ref['bf16_peak_gib']:.3f} GiB)", flush=True)
+        check(ranks[0]["bf16_loss"] == ranks[1]["bf16_loss"] and bf16_rel <= MR_BF16_RTOL,
+              f"spatial {backend}: the bf16 loss is the whole images' on both ranks")
+        check(all(r["bf16_peak_gib"] < ref["bf16_peak_gib"] for r in ranks),
+              f"spatial {backend}: each rank's peak memory is below one process's")
+
+    # (b) the dry run in JAX's layout and on the data-only mesh
+    dryruns = [(MR_WORLD, None, MR_SHARED_DEVICE, "gloo"),
+               (MR_WORLD, 1, MR_SHARED_DEVICE, "gloo")]
+    if torch.cuda.device_count() >= 4:
+        dryruns.append((4, None, None, None))
+    out["dryruns"] = []
+    for n, spatial, device, backend in dryruns:
+        t0 = time.perf_counter()
+        line = dryrun_multichip(n, device=device, backend=backend,
+                                join_timeout=MR_JOIN_S, spatial=spatial)
+        launches = _dryrun_launches(line)
+        s_axis = 2 if spatial is None else spatial
+        out["dryruns"].append({"line": line, "s": time.perf_counter() - t0,
+                               "launches_per_rank": launches})
+        check(line.startswith(f"dryrun_multichip: n={n} mesh=({n // s_axis}x{s_axis})")
+              and line.endswith("OK"), f"dryrun_multichip({n}) as ({n // s_axis}x{s_axis})")
+        check(len(launches) == n and all(c > 0 for c in launches),
+              f"B1 launched on every rank of the dry run: {launches}")
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4410,6 +4604,16 @@ def main(argv=None) -> int:
         for counts in [drivers["counts"]] + drivers["rank_counts"]:
             check(not any(counts.values()),
                   f"no B1 or B2 launch in the multi_rank_drivers phase: {counts}")
+        # slice 12: the spatial axis; the steps launch no kernel, the dry
+        # runs' pool scoring launches B1 on every rank (counted there)
+        t0 = time.perf_counter()
+        reset_counts()
+        spatial = spatial_phase(torch, args.seed, tmp)
+        spatial["counts"] = read_counts()
+        phase_s["spatial"] = time.perf_counter() - t0
+        check(not any(spatial["counts"].values()),
+              f"no B1 or B2 launch in this process in the spatial phase: "
+              f"{spatial['counts']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -4457,6 +4661,10 @@ def main(argv=None) -> int:
         row["multi_rank_drivers_launches"] = {
             "this process": drivers["counts"][row["name"]],
             "worker ranks": [c[row["name"]] for c in drivers["rank_counts"]]}
+        if row["name"] == "upsample4_argmax":   # the dry runs score with DeepLab
+            row["spatial_dryrun_launches_per_rank"] = {
+                d["line"].split(" loss=")[0].split(" ", 1)[1]: d["launches_per_rank"]
+                for d in spatial["dryruns"]}
     check(paths_result["deeplab_resnet50"]["launches"] == 80,
           "B1 launched 80 times in the ResNet-50 variance query")
 
@@ -4471,7 +4679,7 @@ def main(argv=None) -> int:
              "ceal": ceal, "noise": noise, "representative": representative,
              "greedy": greedy, "oracle": oracle, "accuracy": accuracy,
              "zoo": zoo, "replay": replay, "multi_rank": multi_rank,
-             "multi_rank_drivers": drivers},
+             "multi_rank_drivers": drivers, "spatial": spatial},
             indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}

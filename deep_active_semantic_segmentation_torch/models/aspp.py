@@ -6,6 +6,12 @@ a global-average-pool branch, concat -> 1x1 conv 1280->256 -> BN -> ReLU ->
 Dropout2d(0.5). The pool branch runs pool -> 1x1 conv -> ReLU ->
 align-corners upsample -> BN, in that order (aspp.py:62-65,79-81): the BN
 sits after the upsample, as module ``bn_global_average_pool``.
+
+Height-sharded (``parallel.spatial.spatial_rows``): the atrous convs
+fetch their halos (``layers.Conv2d``), the pool is the mean over the
+global rows (``parallel.spatial.spatial_mean``), and its upsample from
+1x1, a broadcast of the one pooled row every rank holds, fills this
+rank's rows.
 """
 
 from __future__ import annotations
@@ -35,8 +41,10 @@ class _ASPPModule(nn.Module):
 
 
 class _GlobalAvgPool(nn.Module):
+    shard = None   # the spatial axis under spatial_rows
+
     def forward(self, x):
-        return global_avg_pool(x)
+        return global_avg_pool(x, self.shard)
 
 
 class ASPP(nn.Module):

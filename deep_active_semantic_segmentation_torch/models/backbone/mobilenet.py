@@ -9,6 +9,13 @@ exactly, including its quirk of padding BEFORE the 1x1 expansion conv
 (the padded border passes through expand -> BN -> ReLU6 and so is not
 zero at the depthwise conv).
 
+Height-sharded (``parallel.spatial.spatial_rows``): the pad rows exist
+only at the global top and bottom, so only the first and last band pad
+their rows, and they enter the expand BN's statistics there, as in the
+whole image; the depthwise conv fetches its halo after the expand BN and
+ReLU6 (no halo row enters any BN's statistics) and reads the padded
+image's rows in global indices (``layers.Conv2d.edge_rows``).
+
 Module names follow the reference, so ``state_dict`` keys are the
 reference's: ``features.N.conv.M.*``, plus the ``low_level_features.*`` /
 ``high_level_features.*`` aliases the reference registers by slicing
@@ -24,7 +31,7 @@ import torch.nn as nn
 
 from deep_active_semantic_segmentation_torch.constants import MC_DROPOUT_RATE
 from deep_active_semantic_segmentation_torch.models.layers import (
-    ChannelDropout, batch_norm, conv, fixed_padding)
+    ChannelDropout, batch_norm, conv, fixed_padding, fixed_padding_rows)
 
 # t (expand), c (channels), n (repeats), s (stride) — mobilenet.py:91-100
 INVERTED_RESIDUAL_SETTING = [
@@ -61,14 +68,18 @@ def block_plan(output_stride: int, width_mult: float = 1.0):
 
 
 class InvertedResidual(nn.Module):
+    shard = None   # the spatial axis under spatial_rows
+
     def __init__(self, inplanes: int, outplanes: int, stride: int,
                  dilation: int, expand_ratio: int):
         super().__init__()
         hidden = round(inplanes * expand_ratio)
         self.dilation = dilation
         self.use_res = stride == 1 and inplanes == outplanes
-        dw = [conv(hidden, hidden, 3, stride, 0, dilation=dilation,
-                   groups=hidden), batch_norm(hidden), nn.ReLU6()]
+        depthwise = conv(hidden, hidden, 3, stride, 0, dilation=dilation,
+                         groups=hidden)
+        depthwise.edge_rows = fixed_padding_rows(3, dilation)
+        dw = [depthwise, batch_norm(hidden), nn.ReLU6()]
         project = [conv(hidden, outplanes, 1), batch_norm(outplanes)]
         if expand_ratio == 1:
             self.conv = nn.Sequential(*dw, *project)
@@ -78,7 +89,7 @@ class InvertedResidual(nn.Module):
                                       *dw, *project)
 
     def forward(self, x):
-        y = self.conv(fixed_padding(x, 3, self.dilation))
+        y = self.conv(fixed_padding(x, 3, self.dilation, self.shard))
         return x + y if self.use_res else y
 
 

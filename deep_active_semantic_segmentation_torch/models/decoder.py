@@ -7,6 +7,8 @@ the classifier. Returns ``(logits, second_to_last_features)``; the
 304-channel concat is the core-set / max-subset feature tap.
 ``last_conv`` keeps the reference's Sequential indices (the dropout at
 index 6, the classifier at 7), so the state_dict keys are the reference's.
+Height-sharded (``parallel.spatial.spatial_rows``), the upsample works in
+global row coordinates and the 3x3 convs fetch their halos.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from deep_active_semantic_segmentation_torch.ops.interpolate import (
 
 
 class Decoder(nn.Module):
+    shard = None   # the spatial axis under spatial_rows
+
     def __init__(self, num_classes: int, low_level_inplanes: int = 24):
         super().__init__()
         self.conv1 = conv(low_level_inplanes, 48, 1)
@@ -38,7 +42,7 @@ class Decoder(nn.Module):
     def forward(self, x, low_level_feat,
                 generator: Optional[torch.Generator] = None):
         low = self.relu(self.bn1(self.conv1(low_level_feat)))
-        x = resize_bilinear_align_corners(x, low.shape[2], low.shape[3])
+        x = resize_bilinear_align_corners(x, low.shape[2], low.shape[3], self.shard)
         second_to_last = torch.cat([x, low], dim=1)
         y = second_to_last
         for layer in self.last_conv[:6]:

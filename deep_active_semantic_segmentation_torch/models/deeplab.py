@@ -23,6 +23,11 @@ decoder's input widths are the backbone's (320 and 24 for MobileNetV2,
   (input noise makes the backbone stochastic).
 * ``return_features`` — also return the decoder's 304-channel concat
   (the core-set / max-subset feature tap).
+
+Under ``parallel.spatial.spatial_rows`` (MobileNetV2 only) ``x`` is this
+rank's band of every image's rows, each band a multiple of 16 rows, and
+the logits are the same band of the whole image's logits; MC noise is
+refused there (its scale is a mean over the whole batch tensor).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from deep_active_semantic_segmentation_torch.ops.interpolate import (
 
 class DeepLab(nn.Module):
     model_name = "deeplab"
+    shard = None   # the spatial axis under spatial_rows
 
     def __init__(self, num_classes: int = 19, backbone: str = "mobilenet",
                  output_stride: int = 16, mc_dropout: bool = False,
@@ -67,6 +73,12 @@ class DeepLab(nn.Module):
         if use_dropout and generator is None:
             raise ValueError("dropout needs an explicit torch.Generator")
         gen = generator if use_dropout else None
+        if self.shard is not None:
+            if noisy_features:
+                raise ValueError("noisy_features on height-sharded bands")
+            if x.shape[2] % 16:
+                raise ValueError(f"a band of {x.shape[2]} rows: the spatial step "
+                                 "needs height % (spatial * 16) == 0")
 
         if noisy_features:
             if generator is None:
@@ -89,7 +101,7 @@ class DeepLab(nn.Module):
         logits, features = self.decoder(y, low_level_feat, gen)
         if upsample_logits:
             logits = resize_bilinear_align_corners(logits, x.shape[2],
-                                                   x.shape[3])
+                                                   x.shape[3], self.shard)
         if return_features:
             return logits, features
         return logits

@@ -2,7 +2,10 @@
 
 * ``conv`` / ``batch_norm`` — torch Conv2d and BatchNorm2d as the reference
   builds them (BN momentum 0.1, eps 1e-5); kernel, padding and dilation
-  may be (h, w) pairs (ENet's asymmetric 5x1 / 1x5 convs).
+  may be (h, w) pairs (ENet's asymmetric 5x1 / 1x5 convs). The conv is a
+  ``Conv2d``: under ``parallel.spatial.spatial_rows`` (the height-sharded
+  step) a conv whose window spans rows fetches the rows it reads across
+  the bands' edges first.
   ``init_weights`` draws every conv and transposed-conv kernel
   kaiming-normal (fan_in, gain^2 = 2, untruncated) from an explicit
   generator, BN weight 1 / bias 0, conv bias 0.
@@ -19,7 +22,9 @@
   by |mean(x)| over the whole batch tensor, drawn from an explicit
   generator.
 * ``fixed_padding`` (TF-style SAME pad, reference
-  models/backbone/mobilenet.py:23-30). ReLU6 is torch's ``nn.ReLU6``.
+  models/backbone/mobilenet.py:23-30); on height-sharded bands only the
+  global top and bottom bands pad their rows. ReLU6 is torch's
+  ``nn.ReLU6``.
 """
 
 from __future__ import annotations
@@ -31,14 +36,33 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from deep_active_semantic_segmentation_torch.parallel.spatial import (
+    sharded_conv)
 
 Pair = Union[int, Tuple[int, int]]
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state_dict keys). ``shard``:
+    the spatial axis under ``spatial_rows``, when the input is this
+    rank's band of rows; a conv that reads across rows (a window taller
+    than 1, or a stride) then runs as ``parallel.spatial.sharded_conv``.
+    ``edge_rows``: rows of ``fixed_padding`` its input carries at the
+    global top and bottom (the inverted residuals' depthwise convs)."""
+
+    shard = None
+    edge_rows = (0, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is None or (self.kernel_size[0], self.stride[0]) == (1, 1):
+            return super().forward(x)
+        return sharded_conv(self, x, self.shard)
+
+
 def conv(cin: int, cout: int, kernel: Pair, stride: int = 1, padding: Pair = 0,
-         dilation: Pair = 1, groups: int = 1, bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
-                     dilation=dilation, groups=groups, bias=bias)
+         dilation: Pair = 1, groups: int = 1, bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                  dilation=dilation, groups=groups, bias=bias)
 
 
 def batch_norm(channels: int) -> nn.BatchNorm2d:
@@ -118,13 +142,27 @@ def dropout_rows(model: nn.Module, rank: int, world: int):
             m.rows = (0, 1)
 
 
-def fixed_padding(x: torch.Tensor, kernel_size: int, dilation: int) -> torch.Tensor:
-    """Reference models/backbone/mobilenet.py:23-30 (TF-style SAME pad)."""
+def fixed_padding_rows(kernel_size: int, dilation: int) -> Tuple[int, int]:
+    """(before, after): the TF-style SAME pad of each side."""
     effective = kernel_size + (kernel_size - 1) * (dilation - 1)
     pad_total = effective - 1
     beg = pad_total // 2
-    end = pad_total - beg
-    return F.pad(x, (beg, end, beg, end))
+    return beg, pad_total - beg
+
+
+def fixed_padding(x: torch.Tensor, kernel_size: int, dilation: int,
+                  shard=None) -> torch.Tensor:
+    """Reference models/backbone/mobilenet.py:23-30 (TF-style SAME pad).
+    ``shard`` (the spatial axis; ``x`` this rank's band of rows): the
+    columns pad on every rank, the rows only at the global top (rank 0)
+    and bottom (the last rank), so the bands together are the padded
+    image."""
+    beg, end = fixed_padding_rows(kernel_size, dilation)
+    top, bottom = beg, end
+    if shard is not None:
+        top = beg if shard.rank == 0 else 0
+        bottom = end if shard.rank == shard.world - 1 else 0
+    return F.pad(x, (beg, end, top, bottom))
 
 
 def noise_scale(x: torch.Tensor, factor: float) -> torch.Tensor:

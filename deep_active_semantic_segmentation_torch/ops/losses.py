@@ -25,6 +25,14 @@ mean of the gradients the update is that loss's gradient, also where
 the ranks hold different counts of valid pixels (a mean of per-rank
 losses would weight them wrongly). Without a process group the
 arithmetic is the one-card path's.
+
+On a mesh with a spatial axis (``make_mesh(spatial=)``) the ranks of one
+data row hold bands of the same images: the pixel sums still cross every
+rank, the batch size counts the data rows only, and the sample-weighted
+loss's spatial mean divides by the global height. The same loss serves
+the data-only step on that mesh, whose rows are replicated over the
+spatial axis: every sum then counts each pixel once per replica, and the
+quotients are unchanged.
 """
 
 from __future__ import annotations
@@ -41,9 +49,12 @@ from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
 IGNORE_INDEX = 255
 
 
+def _distributed(mesh) -> bool:
+    return mesh is not None and mesh.distributed
+
+
 def _global_batch(logits: torch.Tensor, mesh) -> int:
-    return logits.shape[0] * (mesh.world if mesh is not None and mesh.distributed
-                              else 1)
+    return logits.shape[0] * (mesh.data_world if _distributed(mesh) else 1)
 
 
 def _per_pixel(logits: torch.Tensor, target: torch.Tensor, class_weights):
@@ -105,9 +116,11 @@ def sample_weighted_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     if class_weights is not None:
         nll = nll * w
     per_sample = nll.mean(dim=(1, 2))
+    if _distributed(mesh) and mesh.spatial_world > 1:
+        per_sample = per_sample / mesh.spatial_world   # this band's share
     weighted = per_sample * torch.as_tensor(sample_weights, dtype=torch.float32,
                                             device=nll.device)
-    if mesh is not None and mesh.distributed:
+    if _distributed(mesh):
         loss = cross_replica_sum(weighted.sum(), mesh) / _global_batch(logits, mesh)
     else:
         loss = weighted.mean()

@@ -34,6 +34,8 @@ gradients, so the update is the gradient of the global value.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -234,3 +236,24 @@ def convert_cross_replica_bn(module: nn.Module, mesh) -> nn.Module:
             convert_cross_replica_bn(child, mesh)
     return module
 
+
+@contextlib.contextmanager
+def batch_norm_axis(module: nn.Module, mesh):
+    """For the length of a ``with`` block, every ``CrossReplicaBatchNorm2d``
+    of ``module`` merges its statistics over ``mesh`` (None: no change).
+    The data-only step on a mesh with a spatial axis merges over
+    ``mesh.axis('data')``: the ranks of a data row hold the same images
+    there, and merging over them too would count each pixel once per
+    replica (the running variance's n / (n - 1) would change)."""
+    if mesh is None:
+        yield
+        return
+    bns = [m for m in module.modules() if isinstance(m, CrossReplicaBatchNorm2d)]
+    saved = [m.mesh for m in bns]
+    for m in bns:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m, old in zip(bns, saved):
+            m.mesh = old

@@ -1,12 +1,18 @@
-"""Ranks, their devices and their process group (parity: the JAX package's
-parallel/mesh.py, whose 1-D ``data`` mesh shards the global batch over
-the devices and replicates the parameters).
+"""Ranks, their devices and their process groups (parity: the JAX
+package's parallel/mesh.py, whose ``(data, spatial)`` mesh shards the
+global batch over ``data`` and, for the spatial train step, the image
+height over ``spatial``, and replicates the parameters).
 
-A ``Mesh`` is this process's place in a data-parallel run: its ``rank``,
-the ``world`` size, the ``device`` it computes on and the
-``torch.distributed`` process ``group`` the ranks talk over. One rank
-with no process group is the one-card path, unchanged: every collective
-below is then the identity.
+A ``Mesh`` is this process's place in a run: its ``rank``, the ``world``
+size, the ``device`` it computes on and the ``torch.distributed`` process
+``group`` the ranks talk over. One rank with no process group is the
+one-card path, unchanged: every collective below is then the identity.
+With ``spatial`` > 1 the ranks form JAX's ``reshape(world // spatial,
+spatial)``: rank r is data row ``r // spatial`` and height shard
+``r % spatial``, and ``axis('spatial')`` / ``axis('data')`` are the 1-D
+meshes of its row and of its shard's column, each over a process
+subgroup that every rank created in the same order. ``spatial=1`` is the
+1-D data mesh, with no subgroup.
 
 ``launch(fn, args, num_devices, ...)`` runs ``fn(mesh, *args)`` on every
 rank. Under ``torchrun`` the process is one rank already (``RANK``,
@@ -55,6 +61,42 @@ class Mesh:
     device: torch.device = torch.device("cpu")
     group: Optional[Any] = None
     rendezvous_dir: Optional[str] = field(default=None, repr=False)
+    spatial: int = 1
+    spatial_group: Optional[Any] = field(default=None, repr=False)
+    data_group: Optional[Any] = field(default=None, repr=False)
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def data_world(self) -> int:
+        return self.world // self.spatial
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.spatial
+
+    @property
+    def spatial_world(self) -> int:
+        return self.spatial
+
+    def axis(self, name: str) -> "Mesh":
+        """The 1-D mesh of one axis through this rank: ``'spatial'``, the
+        ranks of its data row (its image's height shards); ``'data'``,
+        the ranks holding its height shard of every data row. A one-rank
+        axis has no process group (its collectives are the identity); on
+        a 1-D mesh ``'data'`` is the mesh itself. Never closed: the
+        mesh's ``close`` ends every group."""
+        if name == "data":
+            if self.spatial == 1:
+                return self
+            return Mesh(self.data_rank, self.data_world, self.device,
+                        self.data_group)
+        if name == "spatial":
+            return Mesh(self.spatial_rank, self.spatial, self.device,
+                        self.spatial_group)
+        raise ValueError(f"mesh axis '{name}': 'data' or 'spatial'")
 
     @property
     def distributed(self) -> bool:
@@ -140,7 +182,7 @@ class Mesh:
     def close(self) -> None:
         if self.distributed:
             dist.destroy_process_group(self.group)
-            self.group = None
+            self.group = self.spatial_group = self.data_group = None
         if self.rendezvous_dir is not None:
             shutil.rmtree(self.rendezvous_dir, ignore_errors=True)
             self.rendezvous_dir = None
@@ -176,15 +218,35 @@ def rank_device(device, local_rank: int, world: int) -> torch.device:
     return torch.device("cuda", local_rank)
 
 
+def _axis_groups(rank: int, world: int, spatial: int, backend: str,
+                 timeout: float):
+    """(spatial group, data group) of ``rank``: the subgroups of every
+    data row, then of every height shard, created by every rank in that
+    order (``dist.new_group`` is collective); a one-rank axis has none."""
+    found = {}
+    rows = [list(range(d * spatial, (d + 1) * spatial))
+            for d in range(world // spatial)]
+    columns = [list(range(s, world, spatial)) for s in range(spatial)]
+    for name, groups in (("spatial", rows), ("data", columns)):
+        for ranks in groups:
+            if len(ranks) == 1:
+                continue
+            group = dist.new_group(ranks, timedelta(seconds=timeout), backend)
+            if rank in ranks:
+                found[name] = group
+    return found.get("spatial"), found.get("data")
+
+
 def make_mesh(num_devices: Optional[int] = None, device=None,
               backend: Optional[str] = None, init_method: Optional[str] = None,
-              timeout: float = DEFAULT_TIMEOUT_S) -> Mesh:
+              timeout: float = DEFAULT_TIMEOUT_S, spatial: int = 1) -> Mesh:
     """This process's rank of the run. Under ``torchrun`` (or as a rank
     ``launch`` spawned) it reads ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``
     and joins the process group; otherwise it is the only rank, with a
     process group only when ``backend`` is named (a one-rank group, to
     run the distributed route on one card). ``backend``: None is NCCL on
-    cards and gloo on the CPU."""
+    cards and gloo on the CPU. ``spatial``: the ranks of each data row
+    (the module docstring); it must divide the world."""
     if _torchrun():
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         local = int(os.environ.get("LOCAL_RANK", rank))
@@ -194,6 +256,7 @@ def make_mesh(num_devices: Optional[int] = None, device=None,
         raise ValueError(f"{num_devices} devices asked for in a run of "
                          f"{world} ranks: more than one rank is started by "
                          "parallel.mesh.launch or torchrun")
+    check_spatial(world, spatial)
     dev = rank_device(device, local, world)
     if world == 1 and backend is None:
         return Mesh(0, 1, dev, None)
@@ -213,12 +276,24 @@ def make_mesh(num_devices: Optional[int] = None, device=None,
         init_method = "file://" + os.path.join(rendezvous_dir, "rendezvous")
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world, timeout=timedelta(seconds=timeout))
-    return Mesh(rank, world, dev, dist.group.WORLD, rendezvous_dir)
+    mesh = Mesh(rank, world, dev, dist.group.WORLD, rendezvous_dir, spatial)
+    if spatial > 1:
+        mesh.spatial_group, mesh.data_group = _axis_groups(rank, world, spatial,
+                                                           backend, timeout)
+    return mesh
+
+
+def check_spatial(world: int, spatial: int) -> None:
+    """Raise unless ``spatial`` ranks per data row divide ``world`` (the
+    JAX package's ``assert n % spatial == 0``)."""
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"a spatial axis of {spatial} does not divide a "
+                         f"world of {world} ranks")
 
 
 def _rank_main(local_rank: int, world: int, init_method: str, fn: Callable,
                args: tuple, device, backend, timeout: float,
-               threads: int) -> None:
+               threads: int, spatial: int) -> None:
     """A spawned rank: torchrun's environment, the mesh, ``fn``. Ranks
     other than 0 print nothing; CPU ranks share the parent's intra-op
     threads."""
@@ -226,7 +301,7 @@ def _rank_main(local_rank: int, world: int, init_method: str, fn: Callable,
                       LOCAL_RANK=str(local_rank))
     if local_rank:
         sys.stdout = open(os.devnull, "w")
-    mesh = make_mesh(world, device, backend, init_method, timeout)
+    mesh = make_mesh(world, device, backend, init_method, timeout, spatial)
     if mesh.device.type == "cpu":
         torch.set_num_threads(threads)
     try:
@@ -238,14 +313,15 @@ def _rank_main(local_rank: int, world: int, init_method: str, fn: Callable,
 def launch(fn: Callable, args: tuple = (), num_devices: Optional[int] = None,
            device=None, backend: Optional[str] = None,
            timeout: float = DEFAULT_TIMEOUT_S,
-           join_timeout: Optional[float] = None):
+           join_timeout: Optional[float] = None, spatial: int = 1):
     """Run ``fn(mesh, *args)`` on every rank of the run and return its
     result when this process is the only rank or a ``torchrun`` rank;
     after spawning ``num_devices`` > 1 ranks, return None (rank 0's files
     are the result). A rank that raises ends the run: the others are
     terminated and the error is raised here. ``join_timeout``: seconds
     to wait for the spawned ranks before killing them and raising
-    ``TimeoutError``; ``timeout`` is each process group's."""
+    ``TimeoutError``; ``timeout`` is each process group's. ``spatial``:
+    as in ``make_mesh``, checked before any rank starts."""
     import torch.multiprocessing as mp
 
     if not _torchrun():
@@ -256,13 +332,14 @@ def launch(fn: Callable, args: tuple = (), num_devices: Optional[int] = None,
                  else 1)
         if n < 1:
             raise ValueError(f"num_devices {n}")
+        check_spatial(n, spatial)
         if n > 1:
             rank_device(device, n - 1, n)   # too few cards raise here
             with tempfile.TemporaryDirectory(prefix="dass_mesh_") as tmp:
                 init = "file://" + os.path.join(tmp, "rendezvous")
                 ctx = mp.start_processes(
                     _rank_main, args=(n, init, fn, args, device, backend, timeout,
-                                      max(1, torch.get_num_threads() // n)),
+                                      max(1, torch.get_num_threads() // n), spatial),
                     nprocs=n, join=False, start_method="spawn")
                 deadline = (None if join_timeout is None
                             else time.monotonic() + join_timeout)
@@ -274,7 +351,7 @@ def launch(fn: Callable, args: tuple = (), num_devices: Optional[int] = None,
                                            f"{join_timeout} s")
             return None
         num_devices = 1
-    mesh = make_mesh(num_devices, device, backend, timeout=timeout)
+    mesh = make_mesh(num_devices, device, backend, timeout=timeout, spatial=spatial)
     try:
         return fn(mesh, *args)
     finally:

@@ -27,8 +27,20 @@ its own cross-replica statistics and a divergence would show), its
 ``layers.batch_norm``s are ``CrossReplicaBatchNorm2d``s (the caller
 converts them), the loss is built with the mesh (global normalizers) and
 the dropout masks are the global batch's rows (``layers.dropout_rows``).
-The eval step all-reduces the confusion matrix and the valid count. The
-two-headed steps take ``mesh`` the same way: both losses (the
+The eval step all-reduces the confusion matrix and the valid count.
+
+``make_train_step(spatial=True)`` on a mesh with a spatial axis
+(``make_mesh(spatial=)``, JAX's ``P('data', 'spatial')`` step) takes on
+each rank its data row's images and its band of their rows
+(``parallel.spatial.shard_rows``): the forward runs under
+``parallel.spatial.spatial_rows`` (halo exchanges, the global pool and
+resizes), the BN statistics merge over every rank, the loss (built with
+the mesh) sums over every rank and counts the data rows, and DDP
+averages the ranks' partial gradients over the whole world. Without
+``spatial`` on such a mesh the step is JAX's ``P('data')`` step: the
+ranks of a data row hold the same rows (replicas), the BN statistics
+merge over ``mesh.axis('data')``, and the dropout masks are the data
+row's in both. The two-headed steps take ``mesh`` the same way: both losses (the
 segmentation CE and the error head's class-weighted CE) are built with
 it, and the dual eval step all-reduces both confusions and the valid
 count.
@@ -42,6 +54,9 @@ import torch
 
 from deep_active_semantic_segmentation_torch.models.layers import dropout_rows
 from deep_active_semantic_segmentation_torch.ops.metrics import confusion_matrix
+from deep_active_semantic_segmentation_torch.parallel import spatial as spatial_lib
+from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+    batch_norm_axis)
 from deep_active_semantic_segmentation_torch.parallel.optim import set_lr
 from deep_active_semantic_segmentation_torch.selection.kernels import (
     normalize_on_device)
@@ -86,7 +101,8 @@ def _data_parallel(model, mesh):
 def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
                     compute_dtype: str = "float32",
                     generator: Optional[torch.Generator] = None,
-                    remat: bool = False, norm=None, mesh=None) -> Callable:
+                    remat: bool = False, norm=None, mesh=None,
+                    spatial: bool = False) -> Callable:
     """``step(batch, step_index, total_iters=None, iters_per_epoch=None)
     -> {'loss': 0-d device tensor, 'lr': float}``: one forward and
     backward, then the optimizer step at ``schedule(step_index, ...)``.
@@ -100,17 +116,31 @@ def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
     generator's, so the recomputed forward would draw other masks and the
     gradients would be wrong. ``norm``: as in ``ingest``. ``mesh``: see
     the module docstring; ``generator`` is then in the same state on
-    every rank."""
+    every rank. ``spatial``: shard the height over the mesh's spatial
+    axis (the module docstring; DeepLab-MobileNetV2 only, its BNs
+    converted to ``CrossReplicaBatchNorm2d`` with ``mesh``)."""
     bf16 = _autocast_bf16(compute_dtype, remat)
-    net, rows = model, (0, 1)
+    net, rows, shard, bn_axis = model, (0, 1), None, None
+    if spatial:
+        if not _distributed(mesh) or mesh.spatial_world == 1:
+            raise ValueError("spatial=True needs a mesh with a spatial axis "
+                             "(parallel.mesh.make_mesh(spatial=...))")
+        spatial_lib.check_model(model)
+        if any(type(m) is torch.nn.BatchNorm2d for m in model.modules()):
+            raise ValueError("the spatial step needs the model's batch norms "
+                             "converted (crossreplica.convert_cross_replica_bn)")
+        shard = mesh.axis("spatial")
     if _distributed(mesh):
-        net, rows = _data_parallel(model, mesh), (mesh.rank, mesh.world)
+        net, rows = _data_parallel(model, mesh), (mesh.data_rank, mesh.data_world)
+        if not spatial and mesh.spatial_world > 1:
+            bn_axis = mesh.axis("data")
 
     def step(batch, step_index: int, total_iters: Optional[int] = None,
              iters_per_epoch: Optional[int] = None):
         image, label = ingest(batch, norm)
         with torch.autocast(image.device.type, dtype=torch.bfloat16,
-                            enabled=bf16), dropout_rows(model, *rows):
+                            enabled=bf16), dropout_rows(model, *rows), \
+                spatial_lib.spatial_rows(model, shard), batch_norm_axis(model, bn_axis):
             out = net(image, use_dropout=generator is not None,
                       generator=generator)
         loss = loss_fn(out.float(), label)

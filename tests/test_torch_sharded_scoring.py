@@ -266,8 +266,9 @@ def test_indivisible_batch_is_refused_before_any_rank_starts(tmp_path):
 
 
 def test_dryrun_multichip_on_two_cpu_ranks():
+    """JAX's layout: two devices are one data row of two height bands."""
     line = dryrun_multichip(WORLD, device="cpu", join_timeout=JOIN_TIMEOUT_S)
-    assert line.startswith("dryrun_multichip: n=2 mesh=(2x1)")
+    assert line.startswith("dryrun_multichip: n=2 mesh=(1x2)")
     assert "pool_scores_ok=True" in line and line.endswith("OK")
 
 

@@ -363,3 +363,165 @@ def driver_checks(mesh, setup_path, out_dir):
         out["unet"] = unet_train_torch.train(
             mesh, unet_train_torch.parse_args(setup["unet_argv"]), setup["sem_root"])[2]
     _save(mesh, out_dir, out)
+
+
+# ------------------------------------------------ the spatial (height) axis
+
+def _band(mesh, x, axis=2):
+    """This rank's data rows of a global batch and its band of their rows
+    (``axis``: the rows' axis, 2 for NCHW, 1 for NHWC and labels)."""
+    from deep_active_semantic_segmentation_torch.parallel.spatial import shard_rows
+
+    per = x.shape[0] // mesh.data_world
+    x = x[mesh.data_rank * per:(mesh.data_rank + 1) * per]
+    start, end = shard_rows(x.shape[axis], mesh, multiple=1)
+    return x[(slice(None),) * axis + (slice(start, end),)]
+
+
+def _conv_band(mesh, case):
+    """The rows [start, end) of the global (padded) conv input this rank
+    holds: equal bands of the unpadded rows, plus the padding rows at the
+    global top and bottom (``sharded_conv``'s ``edge_rows``)."""
+    top, bottom = case["edge"]
+    n, r = mesh.spatial_world, mesh.spatial_rank
+    h = (case["x"].shape[2] - top - bottom) // n
+    start = r * h + (top if r else 0)
+    return start, (r + 1) * h + top + (bottom if r == n - 1 else 0)
+
+
+def spatial_primitives(mesh, cases):
+    """Each case's forward band and gradients on this rank (f64)."""
+    from deep_active_semantic_segmentation_torch.models.layers import conv
+    from deep_active_semantic_segmentation_torch.parallel import spatial
+
+    axis = mesh.axis("spatial")
+    out = []
+    for case in cases:
+        x_all = torch.from_numpy(case["x"])
+        if case["kind"] == "conv":
+            start, end = _conv_band(mesh, case)
+            x = x_all[:, :, start:end].clone().requires_grad_(True)
+            w = torch.from_numpy(case["weight"])
+            layer = conv(w.shape[1] * case["groups"], w.shape[0], w.shape[2],
+                         case["stride"], case["pad"], case["dilation"],
+                         case["groups"]).double()
+            with torch.no_grad():
+                layer.weight.copy_(w)
+            layer.edge_rows = case["edge"]
+            y = spatial.sharded_conv(layer, x, axis)
+            dy = _band(mesh, torch.from_numpy(case["dy"]))
+            (y * dy).sum().backward()
+            out.append({"y": y.detach().numpy(), "dx": x.grad.numpy(),
+                        "dw": layer.weight.grad.numpy()})
+            continue
+        x = _band(mesh, x_all).clone().requires_grad_(True)
+        if case["kind"] == "resize":
+            oh, ow = case["out"]
+            y = spatial.resize_rows(x, oh // mesh.spatial_world, ow, axis)
+            dy = _band(mesh, torch.from_numpy(case["dy"]))
+        else:   # the global mean
+            y = spatial.spatial_mean(x, axis)
+            dy = torch.from_numpy(case["dy"])
+        (y * dy).sum().backward()
+        out.append({"y": y.detach().numpy(), "dx": x.grad.numpy()})
+    return out
+
+
+def spatial_losses(mesh, setup):
+    """The four losses on this rank's band of the logits: (value, logits
+    gradient) per case."""
+    from deep_active_semantic_segmentation_torch.ops import losses
+
+    out = {}
+    for kind, batch_average in setup["loss_cases"]:
+        logits = _band(mesh, torch.from_numpy(setup["logits"])).clone()
+        logits.requires_grad_(True)
+        target = _band(mesh, torch.from_numpy(setup["target"]), 1)
+        cw = torch.from_numpy(setup["cw5"]) if kind.startswith("weighted") else None
+        if kind == "sample_weighted":
+            per = setup["sw"].shape[0] // mesh.data_world
+            sw = setup["sw"][mesh.data_rank * per:(mesh.data_rank + 1) * per]
+            loss = losses.sample_weighted_cross_entropy(
+                logits, target, torch.from_numpy(sw), setup["cw5"],
+                batch_average=batch_average, mesh=mesh)
+        else:
+            fn = losses.focal_loss if "focal" in kind else losses.cross_entropy
+            loss = fn(logits, target, class_weights=cw, batch_average=batch_average,
+                      mesh=mesh)
+        loss.backward()
+        out[(kind, batch_average)] = (float(loss), logits.grad.numpy())
+    return out
+
+
+def spatial_train_step(mesh, setup, dtype=torch.float64, spatial=True,
+                       dropout_seed=None, device="cpu"):
+    """One SGD step (lr 0.01, balanced weights) of the setup's DeepLab on
+    this rank's data rows (``spatial``: and its band of their rows), f64
+    weights on the host-normalized f64 image or f32 on the uint8 wire;
+    (loss, state_dict on the host). ``mesh`` None: one process on the
+    whole batch, on ``device``; dropout from a generator on the device."""
+    from deep_active_semantic_segmentation_torch.models.factory import param_groups
+    from deep_active_semantic_segmentation_torch.ops.losses import build_loss
+    from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
+        constant_schedule)
+    from deep_active_semantic_segmentation_torch.parallel.optim import (
+        build_optimizer)
+    from deep_active_semantic_segmentation_torch.parallel.steps import (
+        make_train_step)
+
+    device = mesh.device if mesh is not None else torch.device(device)
+    model = _deeplab(setup["state_dict"], mesh).to(device, dtype)
+    gen = (None if dropout_seed is None
+           else torch.Generator(device=device).manual_seed(dropout_seed))
+    step = make_train_step(
+        model, build_optimizer("SGD", param_groups(model, "deeplab")),
+        build_loss("ce", class_weights=torch.from_numpy(setup["cw"]).to(device),
+                   mesh=mesh),
+        constant_schedule(0.01), generator=gen, mesh=mesh,
+        spatial=spatial and mesh is not None)
+    image = setup["image"] if dtype == torch.float32 else f64_image(setup["image"])
+    image, label = torch.from_numpy(image), torch.from_numpy(setup["label"])
+    if mesh is not None and spatial:
+        image, label = _band(mesh, image, 1), _band(mesh, label, 1)
+    elif mesh is not None:
+        per = image.shape[0] // mesh.data_world
+        rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+        image, label = image[rows], label[rows]
+    out = step({"image": image.to(device), "label": label.to(device)}, 0)
+    return float(out["loss"]), {k: v.detach().cpu().clone()
+                                for k, v in model.state_dict().items()}
+
+
+def spatial_card_checks(mesh, setup_path, out_dir):
+    """The spatial step in f64 with dropout on this rank's card."""
+    setup = _load(setup_path)
+    _save(mesh, out_dir, {"f64_step": spatial_train_step(
+        mesh, setup, dropout_seed=setup["dropout_seed"])})
+
+
+def spatial_checks(mesh, setup_path, out_dir):
+    """On this rank of a (data x spatial) mesh: the primitives, the
+    losses on bands, the spatial step in f64 with dropout and in f32
+    without, and the data-only step in f64 (the spatial ranks of a row
+    replicas)."""
+    setup = _load(setup_path)
+    out = {"prims": spatial_primitives(mesh, setup["prims"])}
+    if setup.get("steps"):
+        out["losses"] = spatial_losses(mesh, setup)
+        steps = {"f64_step": spatial_train_step(mesh, setup,
+                                                dropout_seed=setup["dropout_seed"]),
+                 "f32_step": spatial_train_step(mesh, setup, torch.float32),
+                 "data_only_step": spatial_train_step(mesh, setup, spatial=False)}
+        # rank 0's tensors in full, every rank's digest of them
+        for name, (loss, state) in steps.items():
+            out[name] = (loss, state if mesh.main else None, state_digest(state))
+    _save(mesh, out_dir, out)
+
+
+def state_digest(state) -> str:
+    import hashlib
+
+    digest = hashlib.sha1()
+    for k in sorted(state):
+        digest.update(state[k].numpy().tobytes())
+    return digest.hexdigest()

@@ -1,7 +1,7 @@
 """The PyTorch port's multi-rank phases alone, on one card or on a host
 with several.
 
-    python tools/multi_rank_torch.py [--phase multi_rank|multi_rank_drivers]
+    python tools/multi_rank_torch.py [--phase multi_rank|multi_rank_drivers|spatial]
                                      [--out results.json]
 
 Builds the kernels, writes chip_smoke.py's 20 synthetic Cityscapes-sized
@@ -13,7 +13,11 @@ world 1; with four cards or more then ``dryrun_multichip(4)`` and a
 ``active_train_torch.main`` over NCCL. ``multi_rank_drivers``:
 ``multi_rank_drivers_phase``, the two-headed step, the accuracy
 predictor's driver and picks, the replays and the SEM trainer on two gloo
-ranks sharing card 0. Needs CUDA; imports no JAX.
+ranks sharing card 0. ``spatial``: ``spatial_phase``, the height-sharded
+DeepLab-MobileNetV2 step at 1024x2048 on a (1x2) mesh (gloo ranks
+sharing card 0, and one rank per card over NCCL where two cards are
+visible) and ``dryrun_multichip`` as (1x2) and (2x1), and as (2x2) over
+NCCL where four cards are. Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ sys.path.insert(0, str(REPO))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=["multi_rank", "multi_rank_drivers"],
+    ap.add_argument("--phase", choices=["multi_rank", "multi_rank_drivers", "spatial"],
                     default="multi_rank")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args(argv)
@@ -57,6 +61,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         if args.phase == "multi_rank_drivers":
             out["phase"] = cs.multi_rank_drivers_phase(torch, 0, tmp, paths)
+        elif args.phase == "spatial":
+            out["phase"] = cs.spatial_phase(torch, 0, tmp)
         else:
             out["phase"] = cs.multi_rank_phase(torch, 0, tmp, tmp / "cityscapes" / "train",
                                                paths)
