@@ -172,19 +172,25 @@
    unet_train_torch.main on 2 ranks in f32; whether the lmdb binding
    imports (where it does, a converted LMDB store through the factory).
    No B1 or B2 launch there.
-15. Slice 12, the spatial phase (parallel/spatial.py, the height-sharded
-   step): DeepLab-v3+/MobileNetV2 os16, 19 classes, at Cityscapes' full
-   1024x2048 frame, BN biases drawn off the ReLU6 kinks. Two gloo ranks
-   sharing the card as a (1x2) mesh (also one rank per card over NCCL
-   where two cards are visible), each on its 512 rows: the f64 step on 1
-   image (state within 1e-10 of the largest weight, BN running
+15. Slices 12-13, the spatial phase (parallel/spatial.py, the
+   height-sharded step), for every model JAX's spatial step takes, at
+   full width: DeepLab-v3+/MobileNetV2 and DeepLab-v3+/ResNet-101 os16,
+   ENet and FastSCNN, 19 classes, at Cityscapes' full 1024x2048 frame,
+   and the SEM UNet (1 input channel, 2 classes) at 768x1024; BN biases
+   drawn off the ReLU kinks. Two gloo ranks sharing the card as a (1x2)
+   mesh (also one rank per card over NCCL where two cards are visible;
+   one spawn runs every model), each on its half of the rows: the f64
+   step on 1 image (state within 1e-10 of the largest weight, BN running
    statistics included; the f32 loss within 1e-6) and the f32 step on 2
-   images (TF32 off: loss within 1e-5, weights within 5e-4) against one
-   process on the whole images; the bf16 step's ms per rank and each
-   rank's peak memory against one process's. dryrun_multichip(2) in
-   JAX's (1x2) layout and on the data-only (2x1) mesh on the card, each
-   rank's B1 launches (its pool scoring) read from its line;
-   dryrun_multichip(4) over NCCL as (2x2) where four cards are visible.
+   images (TF32 off: loss within 1e-5, weights within 5e-4; 5e-3 for
+   ResNet-101, under the JAX package's own spatial-vs-unsharded gap)
+   against one process on the whole images; the bf16 step's ms per rank
+   and each rank's peak memory against one process's (each below it); each
+   model's seconds as ``spatial_<model>`` in the phase seconds.
+   dryrun_multichip(2) in JAX's (1x2) layout and on the data-only (2x1)
+   mesh on the card, each rank's B1 launches (its pool scoring) read
+   from its line; dryrun_multichip(4) over NCCL as (2x2) where four
+   cards are visible.
 16. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
@@ -3430,11 +3436,14 @@ def _device_ms(torch, device, fn, iters: int) -> float:
 
 def _mr_step(torch, state, batch, dtype: str, device, mesh=None, freeze=False,
              spatial=False):
-    """One SGD step (lr 0.01, dropout off) of a DeepLab loaded from
-    ``state`` on ``batch`` (this rank's rows with ``mesh``; with
-    ``spatial``, its band of them): in bf16 or f32 on the uint8 wire, or
-    with f64 weights and the image normalized in f64 (the loss stays
-    f32): (model, step function, the step's loss)."""
+    """One SGD step (lr 0.01, dropout off) of a model loaded from
+    ``state`` (DeepLab with ``state['backbone']``, or ``state['arch']``
+    built with ``state['build']``, ``state['classes']`` classes, its
+    images normalized with ``state['norm']``, ImageNet's by default) on
+    ``batch`` (this rank's rows with ``mesh``; with ``spatial``, its band
+    of them): in bf16 or f32 on the uint8 wire, or with f64 weights and
+    the image normalized in f64 (the loss stays f32): (model, step
+    function, the step's loss)."""
     from deep_active_semantic_segmentation_torch.models.factory import (
         build_model, param_groups)
     from deep_active_semantic_segmentation_torch.ops.losses import build_loss
@@ -3445,21 +3454,25 @@ def _mr_step(torch, state, batch, dtype: str, device, mesh=None, freeze=False,
     from deep_active_semantic_segmentation_torch.parallel.optim import build_optimizer
     from deep_active_semantic_segmentation_torch.parallel.steps import make_train_step
 
-    model = build_model("deeplab", NUM_CLASSES, backbone=state["backbone"],
-                        mc_dropout=True, device=device)
+    arch = state.get("arch", "deeplab")
+    build = (state["build"] if "build" in state
+             else dict(backbone=state["backbone"], mc_dropout=True))
+    model = build_model(arch, state.get("classes", NUM_CLASSES), device=device, **build)
     model.load_state_dict(state["weights"])
     convert_cross_replica_bn(model.train(), mesh)
     if freeze:
         freeze_bn(model)
+    norm = state.get("norm")
     if dtype == "float64":
         model.double()
-        mean = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float64, device=device)
-        std = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float64, device=device)
+        mean, std = norm or ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+        mean = torch.tensor(mean, dtype=torch.float64, device=device)
+        std = torch.tensor(std, dtype=torch.float64, device=device)
         batch = dict(batch, image=(batch["image"].double() / 255.0 - mean) / std)
-    step = make_train_step(model, build_optimizer("SGD", param_groups(model, "deeplab")),
+    step = make_train_step(model, build_optimizer("SGD", param_groups(model, arch)),
                            build_loss("ce", mesh=mesh), constant_schedule(0.01),
                            compute_dtype="float32" if dtype == "float64" else dtype,
-                           mesh=mesh, spatial=spatial)
+                           norm=norm, mesh=mesh, spatial=spatial)
     return model, step, float(step(batch, 0)["loss"])
 
 
@@ -4225,57 +4238,89 @@ def multi_rank_drivers_phase(torch, seed: int, root: Path, paths):
     out.update(accuracy_main_s=acc_s, unet_main_s=unet_s)
     return out
 
-# ---------------------------------------- slice 12: the spatial (height) axis
+# ------------------------------- slices 12-13: the spatial (height) axis
 
-# DeepLab-MobileNetV2 os16 at Cityscapes' full frame (what the spatial axis
-# is for: JAX's steps.py:100-101, "used for full-resolution inputs"),
-# 19 classes, full width; two gloo ranks sharing the card as a (1x2) mesh,
-# each holding 512 of the 1024 rows
+# every model JAX's spatial step takes, at full width: slice 12's
+# DeepLab-MobileNetV2 os16 and slice 13's DeepLab-ResNet-101 os16 (the
+# heaviest configuration), ENet and FastSCNN at Cityscapes' full frame
+# (what the spatial axis is for: JAX's steps.py:100-101, "used for
+# full-resolution inputs"), 19 classes, and the UNet as
+# unet_train_torch.py builds it (1 input channel, 2 classes, SEM's
+# normalization) at the SEM frame; two gloo ranks sharing the card as a
+# (1x2) mesh, each holding half the rows
 SP_HW = (1024, 2048)
+SP_MODELS = {
+    "deeplab_mobilenet": dict(label="DeepLab-MobileNetV2 os16", arch="deeplab",
+                              build=dict(backbone="mobilenet", output_stride=16,
+                                         mc_dropout=True)),
+    # f32 bar: the JAX package's own f32 spatial step parts from its
+    # unsharded one by 4.7e-2 of the largest weight on DeepLab-ResNet-50
+    # (CPU, side 64, train-mode BN: ASPP's pool-branch BN normalizes two
+    # near-equal values per channel, one per image, and rounds them apart)
+    "deeplab_resnet101": dict(label="DeepLab-ResNet-101 os16", arch="deeplab",
+                              build=dict(backbone="resnet101", output_stride=16,
+                                         mc_dropout=True), f32_rtol=5e-3),
+    "enet": dict(label="ENet", arch="enet", build={}),
+    "fastscnn": dict(label="FastSCNN", arch="fastscnn", build={}),
+    "unet": dict(label="UNet (SEM, 1 channel, 2 classes)", arch="unet",
+                 build=dict(input_channels=1), hw=SEM_HW, classes=2, channels=1),
+}
 SP_IMAGES = 2              # the f32 and bf16 steps' images (f64: 1)
 SP_TIMED_STEPS = 3         # timed bf16 steps after the compared one
 SP_BLOCK = 128             # label blocks of 128 px; the top fifth ignored
+SP_JOIN_S = 900            # the spawn's limit: every model in turn on its ranks
 # bars against one process: the f64 step's state (BN running statistics
-# included) as the CPU tests hold it (1.3e-12 measured at side 64); every
-# port loss computes in f32, so an f64 step's loss is held to f32
+# included) as the CPU tests hold it (1e-13-1e-12 measured at side 64);
+# every port loss computes in f32, so an f64 step's loss is held to f32
 # rounding; f32 (TF32 off) as JAX's own spatial step against its
-# unsharded one (2.9e-4 of the largest weight): a half-height band has
-# cuDNN pick other kernels and round its sums in another order
+# unsharded one for DeepLab-MobileNetV2 (2.9e-4 of the largest weight): a
+# half-height band has cuDNN pick other kernels and round its sums in
+# another order
 SP_F64_RTOL, SP_F64_LOSS_RTOL = 1e-10, 1e-6
 SP_F32_RTOL, SP_F32_LOSS_RTOL = 5e-4, 1e-5
 
 
-def _sp_batch(torch, setup, n: int, device, rows=slice(None)):
-    return {k: torch.from_numpy(setup[k][:n, rows]).to(device) for k in ("image", "label")}
+def _sp_batch(torch, state, n: int, device, rows=slice(None)):
+    return {k: torch.from_numpy(state[k][:n, rows]).to(device) for k in ("image", "label")}
 
 
-def _sp_steps(torch, setup, device, mesh=None) -> dict:
+def _sp_steps(torch, state, device, mesh=None) -> dict:
     """The f64 step on 1 image and the f32 step on SP_IMAGES (TF32 off),
-    then the bf16 step on SP_IMAGES timed, with the peak memory each step
-    adds to what the process held: on the whole images (``mesh`` None) or
-    on this rank's band (the spatial step)."""
+    then the bf16 step on SP_IMAGES timed, with the peak memory the f64
+    and the bf16 steps add to what the process held, of the model
+    ``state`` describes (``SP_MODELS``, its weights and images): on the
+    whole images (``mesh`` None) or on this rank's band (the spatial
+    step)."""
     from deep_active_semantic_segmentation_torch.parallel.spatial import shard_rows
 
-    rows = slice(*shard_rows(SP_HW[0], mesh)) if mesh is not None else slice(None)
+    rows = (slice(*shard_rows(state["image"].shape[1], mesh, state["row_multiple"]))
+            if mesh is not None else slice(None))
     spatial = mesh is not None
     out = {}
+    t0 = time.perf_counter()
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for dtype, n in (("float64", 1), ("float32", SP_IMAGES)):
+            torch.cuda.synchronize(device)
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
             model, _, out[f"{dtype}_loss"] = _mr_step(
-                torch, setup["deeplab"], _sp_batch(torch, setup, n, device, rows),
+                torch, state, _sp_batch(torch, state, n, device, rows),
                 dtype, device, mesh, spatial=spatial)
+            out[f"{dtype}_peak_gib"] = (torch.cuda.max_memory_allocated(device)
+                                        - base) / 2**30
             out[f"{dtype}_state"] = _state(model)
             del model
+            torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    batch = _sp_batch(torch, setup, SP_IMAGES, device, rows)
-    model, step, out["bf16_loss"] = _mr_step(torch, setup["deeplab"], batch, "bfloat16",
+    batch = _sp_batch(torch, state, SP_IMAGES, device, rows)
+    model, step, out["bf16_loss"] = _mr_step(torch, state, batch, "bfloat16",
                                              device, mesh, spatial=spatial)
     it = iter(range(1, 1 + SP_TIMED_STEPS))
     out["bf16_step_ms"] = _device_ms(torch, device, lambda: step(batch, next(it)),
@@ -4283,18 +4328,50 @@ def _sp_steps(torch, setup, device, mesh=None) -> dict:
     out["bf16_peak_gib"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
     del model, step, batch
     torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
     return out
 
 
 def spatial_worker(mesh, setup_path: str, out_dir: str) -> None:
-    """One rank of the spatial phase: ``_sp_steps`` on its band. Saves
-    ``rank<r>.pt`` in ``out_dir``."""
+    """One rank of the spatial phase: ``_sp_steps`` on its band, for each
+    model of the setup in turn. Saves ``rank<r>.pt`` in ``out_dir``."""
     import torch
 
     setup = torch.load(setup_path, weights_only=False)
-    out = _sp_steps(torch, setup, mesh.device, mesh)
+    out = {name: _sp_steps(torch, state, mesh.device, mesh)
+           for name, state in setup.items()}
     out.update(rank=mesh.rank, device=str(mesh.device))
     torch.save(out, str(Path(out_dir) / f"rank{mesh.rank}.pt"))
+
+
+def _sp_setup(torch, seed: int, dev) -> dict:
+    """Each of ``SP_MODELS`` with its weights (BN biases drawn off the
+    ReLU kinks), its row multiple and its SP_IMAGES uint8 images and
+    labels at its frame (label blocks of SP_BLOCK px, the top fifth of
+    the rows ignored: all in rank 0's band)."""
+    from deep_active_semantic_segmentation_torch.data import sem
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.parallel.spatial import row_multiple
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    setup = {}
+    for name, spec in SP_MODELS.items():
+        h, w = spec.get("hw", SP_HW)
+        classes = spec.get("classes", NUM_CLASSES)
+        label = np.kron(rng.randint(0, classes, (SP_IMAGES, h // SP_BLOCK, w // SP_BLOCK)),
+                        np.ones((1, SP_BLOCK, SP_BLOCK), np.int64)).astype(np.uint8)
+        label[:, :h // 5] = 255
+        image = rng.randint(0, 256, label.shape + (spec.get("channels", 3),),
+                            dtype=np.uint8)
+        model = _off_the_kinks(torch, build_model(spec["arch"], classes, device=dev,
+                                                  generator=gen, **spec["build"]), gen)
+        setup[name] = dict(arch=spec["arch"], build=spec["build"], classes=classes,
+                           norm=(sem.MEAN, sem.STD) if spec["arch"] == "unet" else None,
+                           weights=_state(model), row_multiple=row_multiple(model),
+                           image=image, label=label)
+        del model
+    return setup
 
 
 def _dryrun_launches(line: str) -> list:
@@ -4303,36 +4380,28 @@ def _dryrun_launches(line: str) -> list:
 
 
 def spatial_phase(torch, seed: int, root: Path) -> dict:
-    """Slice 12: (a) the height-sharded DeepLab-MobileNetV2 step at
-    1024x2048 on two gloo ranks sharing the card as a (1x2) mesh (and one
-    rank per card over NCCL where two cards are visible) against one
-    process on the whole images: f64 and f32 (TF32 off) gaps, BN running
-    statistics, the bf16 step per rank and each rank's peak memory
-    against one process's. (b) dryrun_multichip(2) in JAX's layout
-    (1x2) and on the data-only (2x1) mesh, gloo ranks sharing the card,
-    with each rank's B1 launches; dryrun_multichip(4) over NCCL as (2x2)
-    where four cards are visible."""
-    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    """Slices 12-13: (a) each model's height-sharded step (``SP_MODELS``:
+    DeepLab-MobileNetV2 and DeepLab-ResNet-101 os16, ENet and FastSCNN at
+    1024x2048, the SEM UNet at 768x1024) on two gloo ranks sharing the
+    card as a (1x2) mesh (and one rank per card over NCCL where two cards
+    are visible; one spawn runs every model) against one process on the
+    whole images: f64 and f32 (TF32 off) gaps, BN running statistics,
+    the bf16 step per rank and each rank's peak memory against one
+    process's. (b) dryrun_multichip(2) in JAX's layout (1x2) and on the
+    data-only (2x1) mesh, gloo ranks sharing the card, with each rank's
+    B1 launches; dryrun_multichip(4) over NCCL as (2x2) where four cards
+    are visible."""
     from deep_active_semantic_segmentation_torch.parallel import mesh as pt_mesh
     from deep_active_semantic_segmentation_torch.parallel.dryrun import (
         dryrun_multichip)
 
     dev = torch.device(DEVICE)
-    rng = np.random.RandomState(seed)
-    h, w = SP_HW
-    label = np.kron(rng.randint(0, NUM_CLASSES, (SP_IMAGES, h // SP_BLOCK, w // SP_BLOCK)),
-                    np.ones((1, SP_BLOCK, SP_BLOCK), np.int64)).astype(np.uint8)
-    label[:, :h // 5] = 255       # ignored rows in rank 0's band only
-    image = rng.randint(0, 256, label.shape + (3,), dtype=np.uint8)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    setup = {"image": image, "label": label, "deeplab": {
-        "backbone": "mobilenet", "weights": _state(_off_the_kinks(torch, build_model(
-            "deeplab", NUM_CLASSES, backbone="mobilenet", mc_dropout=True, device=dev,
-            generator=gen), gen))}}
-    t0 = time.perf_counter()
-    ref = _sp_steps(torch, setup, dev)
-    out = {"one_process": {k: v for k, v in ref.items() if not k.endswith("_state")},
-           "one_process_s": time.perf_counter() - t0}
+    setup = _sp_setup(torch, seed, dev)
+    out, ref = {"models": {}}, {}
+    for name, state in setup.items():
+        ref[name] = _sp_steps(torch, state, dev)
+        out["models"][name] = {"one_process": {k: v for k, v in ref[name].items()
+                                               if not k.endswith("_state")}}
     setup_path = root / "spatial_setup.pt"
     torch.save(setup, str(setup_path))
     routes = [("gloo", MR_SHARED_DEVICE)]
@@ -4344,51 +4413,71 @@ def spatial_phase(torch, seed: int, root: Path) -> dict:
         t0 = time.perf_counter()
         pt_mesh.launch(spatial_worker, (str(setup_path), str(out_dir)),
                        num_devices=MR_WORLD, device=device, backend=backend,
-                       timeout=MR_GROUP_S, join_timeout=MR_JOIN_S, spatial=MR_WORLD)
+                       timeout=MR_GROUP_S, join_timeout=SP_JOIN_S, spatial=MR_WORLD)
         ranks = [torch.load(str(out_dir / f"rank{r}.pt"), weights_only=False)
                  for r in range(MR_WORLD)]
-        route = out[f"{backend}_ranks"] = {"wall_s": time.perf_counter() - t0}
+        out[f"{backend}_wall_s"] = time.perf_counter() - t0
         where = ("two ranks sharing the card: collectives through the host"
                  if device else "one rank per card")
-        for dtype, n, bar, loss_bar in (("float64", 1, SP_F64_RTOL, SP_F64_LOSS_RTOL),
-                                        ("float32", SP_IMAGES, SP_F32_RTOL,
-                                         SP_F32_LOSS_RTOL)):
-            state = ref[f"{dtype}_state"]
-            got = ranks[0][f"{dtype}_state"]
-            loss_rel = abs(ranks[0][f"{dtype}_loss"] - ref[f"{dtype}_loss"]) / abs(
-                ref[f"{dtype}_loss"])
-            gap, worst = _param_gaps(got, state)
-            running = [k for k in state if "running_" in k]
-            bn_gap = max((got[k] - state[k]).abs().max().item()
-                         / state[k].abs().max().item() for k in running)
-            same = all(torch.equal(got[k], ranks[1][f"{dtype}_state"][k]) for k in state)
-            print(f"spatial ({backend}, (1x{MR_WORLD}) mesh, {where}): DeepLab-MobileNetV2 "
-                  f"{dtype} step at {h}x{w}, {n} image(s), {h // MR_WORLD} rows per rank, "
-                  f"vs one process on the whole image(s): loss rel {loss_rel:.2e} (bar "
-                  f"{loss_bar}); parameters {gap:.2e} of the largest weight (bar {bar}), "
-                  f"worst tensor {worst:.2e} of its own; BN running statistics "
-                  f"{bn_gap:.2e} of each buffer's largest; ranks equal: {same}",
-                  flush=True)
-            check(same, f"spatial {backend} {dtype}: both ranks hold the same state")
-            check(loss_rel <= loss_bar, f"spatial {backend} {dtype}: the loss is one "
-                                        "process's")
-            check(gap <= bar, f"spatial {backend} {dtype}: the updated state is one "
-                              "process's")
-            route[dtype] = {"loss_rel": loss_rel, "param_rel": gap, "worst_tensor": worst,
-                            "bn_running_rel": bn_gap}
-        bf16_rel = abs(ranks[0]["bf16_loss"] - ref["bf16_loss"]) / abs(ref["bf16_loss"])
-        route["bf16_loss_rel"] = bf16_rel
-        route["ranks"] = [{k: v for k, v in r.items() if not k.endswith("_state")}
-                          for r in ranks]
-        print(f"  bf16 loss rel {bf16_rel:.2e} (bar {MR_BF16_RTOL}); step per rank "
-              f"{[round(r['bf16_step_ms'], 1) for r in ranks]} ms (one process on the "
-              f"whole images {ref['bf16_step_ms']:.1f} ms); peak memory per rank "
-              f"{[round(r['bf16_peak_gib'], 3) for r in ranks]} GiB (one process "
-              f"{ref['bf16_peak_gib']:.3f} GiB)", flush=True)
-        check(ranks[0]["bf16_loss"] == ranks[1]["bf16_loss"] and bf16_rel <= MR_BF16_RTOL,
-              f"spatial {backend}: the bf16 loss is the whole images' on both ranks")
-        check(all(r["bf16_peak_gib"] < ref["bf16_peak_gib"] for r in ranks),
-              f"spatial {backend}: each rank's peak memory is below one process's")
+        for name, state in setup.items():
+            label, (h, w) = SP_MODELS[name]["label"], state["image"].shape[1:3]
+            route = out["models"][name][f"{backend}_ranks"] = {}
+            one = ref[name]
+            f32_bar = SP_MODELS[name].get("f32_rtol", SP_F32_RTOL)
+            for dtype, n, bar, loss_bar in (("float64", 1, SP_F64_RTOL, SP_F64_LOSS_RTOL),
+                                            ("float32", SP_IMAGES, f32_bar,
+                                             SP_F32_LOSS_RTOL)):
+                want = one[f"{dtype}_state"]
+                got = ranks[0][name][f"{dtype}_state"]
+                loss_rel = abs(ranks[0][name][f"{dtype}_loss"] - one[f"{dtype}_loss"]) / abs(
+                    one[f"{dtype}_loss"])
+                gap, worst = _param_gaps(got, want)
+                worst_name = max((k for k in want if want[k].is_floating_point()),
+                                 key=lambda k: (got[k] - want[k]).abs().max().item()
+                                 / max(want[k].abs().max().item(), 1e-30))
+                running = [k for k in want if "running_" in k]
+                bn_gap = max((got[k] - want[k]).abs().max().item()
+                             / want[k].abs().max().item() for k in running)
+                same = all(torch.equal(got[k], ranks[1][name][f"{dtype}_state"][k])
+                           for k in want)
+                print(f"spatial ({backend}, (1x{MR_WORLD}) mesh, {where}): {label} "
+                      f"{dtype} step at {h}x{w}, {n} image(s), {h // MR_WORLD} rows per "
+                      f"rank, vs one process on the whole image(s): loss rel "
+                      f"{loss_rel:.2e} (bar {loss_bar}); parameters {gap:.2e} of the "
+                      f"largest weight (bar {bar}), worst tensor {worst:.2e} of its own "
+                      f"({worst_name}); BN running statistics {bn_gap:.2e} of each "
+                      f"buffer's largest; "
+                      f"ranks equal: {same}", flush=True)
+                check(same, f"spatial {backend} {name} {dtype}: both ranks hold the "
+                            "same state")
+                check(loss_rel <= loss_bar, f"spatial {backend} {name} {dtype}: the "
+                                            "loss is one process's")
+                check(gap <= bar, f"spatial {backend} {name} {dtype}: the updated state "
+                                  "is one process's")
+                route[dtype] = {"loss_rel": loss_rel, "param_rel": gap,
+                                "worst_tensor": worst, "worst_tensor_name": worst_name,
+                                "bn_running_rel": bn_gap}
+            mine = [r[name] for r in ranks]
+            bf16_rel = abs(mine[0]["bf16_loss"] - one["bf16_loss"]) / abs(one["bf16_loss"])
+            route["bf16_loss_rel"] = bf16_rel
+            route["ranks"] = [{k: v for k, v in r.items() if not k.endswith("_state")}
+                              for r in mine]
+            print(f"  {label}: bf16 loss rel {bf16_rel:.2e} (bar {MR_BF16_RTOL}); step "
+                  f"per rank {[round(r['bf16_step_ms'], 1) for r in mine]} ms (one "
+                  f"process on the whole images {one['bf16_step_ms']:.1f} ms); peak "
+                  f"memory per rank {[round(r['bf16_peak_gib'], 3) for r in mine]} GiB "
+                  f"(one process {one['bf16_peak_gib']:.3f} GiB; f64 step "
+                  f"{[round(r['float64_peak_gib'], 3) for r in mine]}, one process "
+                  f"{one['float64_peak_gib']:.3f} GiB); seconds one process "
+                  f"{one['s']:.1f}, ranks {[round(r['s'], 1) for r in mine]}", flush=True)
+            check(mine[0]["bf16_loss"] == mine[1]["bf16_loss"] and bf16_rel <= MR_BF16_RTOL,
+                  f"spatial {backend} {name}: the bf16 loss is the whole images' on "
+                  "both ranks")
+            check(all(r["bf16_peak_gib"] < one["bf16_peak_gib"] for r in mine),
+                  f"spatial {backend} {name}: each rank's peak memory is below one "
+                  "process's")
+            out["models"][name]["s"] = out["models"][name].get("s", one["s"]) + max(
+                r["s"] for r in mine)
 
     # (b) the dry run in JAX's layout and on the data-only mesh
     dryruns = [(MR_WORLD, None, MR_SHARED_DEVICE, "gloo"),
@@ -4611,6 +4700,8 @@ def main(argv=None) -> int:
         spatial = spatial_phase(torch, args.seed, tmp)
         spatial["counts"] = read_counts()
         phase_s["spatial"] = time.perf_counter() - t0
+        for name, model in spatial["models"].items():
+            phase_s[f"spatial_{name}"] = model["s"]
         check(not any(spatial["counts"].values()),
               f"no B1 or B2 launch in this process in the spatial phase: "
               f"{spatial['counts']}")

@@ -9,6 +9,11 @@ JAX package's reduce_window does). Module names are torchvision's
 (``conv1``, ``bn1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``, ...),
 so a torchvision or reference ``state_dict`` loads unchanged.
 
+Height-sharded (``parallel.spatial.spatial_rows``): the 7x7 / stride 2
+stem, the strided and dilated 3x3s and the stride-2 1x1 downsample are
+``layers.Conv2d``s, which fetch their halos; the stem's pool is
+``layers.MaxPool2d``, -inf above the global top only.
+
 The backbone has no dropout site, so the MC hoist is trivial: the
 features computed once per batch pass straight through.
 """
@@ -20,7 +25,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from deep_active_semantic_segmentation_torch.models.layers import batch_norm, conv
+from deep_active_semantic_segmentation_torch.models.layers import (
+    MaxPool2d, batch_norm, conv)
 
 LAYERS = {"resnet": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 
@@ -63,7 +69,7 @@ class ResNet(nn.Module):
         self.conv1 = conv(input_channels, 64, 7, 2, 3)
         self.bn1 = batch_norm(64)
         self.relu = nn.ReLU()
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        self.maxpool = MaxPool2d(3, 2, 1)
         inplanes = 64
         grids = [[1] * layers[0], [1] * layers[1], [1] * layers[2],
                  list(multi_grid)]

@@ -24,10 +24,11 @@ decoder's input widths are the backbone's (320 and 24 for MobileNetV2,
 * ``return_features`` — also return the decoder's 304-channel concat
   (the core-set / max-subset feature tap).
 
-Under ``parallel.spatial.spatial_rows`` (MobileNetV2 only) ``x`` is this
-rank's band of every image's rows, each band a multiple of 16 rows, and
-the logits are the same band of the whole image's logits; MC noise is
-refused there (its scale is a mean over the whole batch tensor).
+Under ``parallel.spatial.spatial_rows`` (any backbone) ``x`` is this
+rank's band of every image's rows, each band a multiple of the output
+stride (``parallel.spatial.row_multiple``), and the logits are the same
+band of the whole image's logits; MC noise is refused there (its scale
+is a mean over the whole batch tensor).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from deep_active_semantic_segmentation_torch.models.decoder import Decoder
 from deep_active_semantic_segmentation_torch.models.layers import feature_noise
 from deep_active_semantic_segmentation_torch.ops.interpolate import (
     resize_bilinear_align_corners)
+from deep_active_semantic_segmentation_torch.parallel.spatial import check_band
 
 
 class DeepLab(nn.Module):
@@ -55,6 +57,7 @@ class DeepLab(nn.Module):
                  input_channels: int = 3):
         super().__init__()
         self.num_classes = num_classes
+        self.output_stride = output_stride
         self.backbone = build_backbone(backbone, output_stride, mc_dropout,
                                        input_channels)
         high, low = FEATURE_CHANNELS[backbone]
@@ -76,9 +79,7 @@ class DeepLab(nn.Module):
         if self.shard is not None:
             if noisy_features:
                 raise ValueError("noisy_features on height-sharded bands")
-            if x.shape[2] % 16:
-                raise ValueError(f"a band of {x.shape[2]} rows: the spatial step "
-                                 "needs height % (spatial * 16) == 0")
+            check_band(self, x.shape[2])
 
         if noisy_features:
             if generator is None:

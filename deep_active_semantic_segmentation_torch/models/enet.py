@@ -37,6 +37,19 @@ Call-time flags mirror the JAX package's:
 * ``noisy_features`` — MC-noise: one ``layers.feature_noise`` site after
   stage 3 (x0.5), drawn from ``generator`` (the returned stage-3
   features are the noise-free ones, as in the JAX package).
+
+Under ``parallel.spatial.spatial_rows`` ``x`` is this rank's band of
+every image's rows, a multiple of 8 rows, and the logits are the same
+band of the whole image's: the convs fetch their halos
+(``layers.Conv2d``); the initial block's pool (on the normalized image,
+so its -inf edge matters) and the downsampling pools read one halo row
+above (``parallel.spatial.sharded_max_pool``, whose selector counts
+offsets as on the whole image); the unpool reads the window under a
+band's last row from the next band (``parallel.spatial.row_below``:
+values and selectors, 0 and -1 below the global bottom); the transposed
+convs read one row below (``layers.ConvTranspose2d``). Every spatial rank
+of a data row draws the same dropout masks (``layers.dropout_rows``).
+MC noise is refused there (its scale is a mean over the whole tensor).
 """
 
 from __future__ import annotations
@@ -48,21 +61,29 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deep_active_semantic_segmentation_torch.models.layers import (
-    ChannelDropout, activation, batch_norm, conv, feature_noise)
+    ChannelDropout, ConvTranspose2d, MaxPool2d, activation, batch_norm, conv,
+    feature_noise)
+from deep_active_semantic_segmentation_torch.parallel.spatial import (
+    check_band, row_below, sharded_max_pool)
 
 
-def max_pool_with_indices(x: torch.Tensor):
+def max_pool_with_indices(x: torch.Tensor, shard=None):
     """MaxPool2d(3, stride 2, padding 1) -> (pooled, selector). The
     selector is the int8 offset ``3*dr + dc`` of the first maximum in the
     window (row-major scan, strict '>', as torch's pool and the JAX
-    package's tournament both break ties), not torch's flat index."""
+    package's tournament both break ties), not torch's flat index.
+    ``shard``: ``x`` is this rank's band of the rows (the height check
+    reads the global height)."""
     B, C, H, W = x.shape
+    H *= shard.world if shard is not None else 1
     if H % 2 or W % 2:
         raise ValueError(
             f"ENet requires even input sizes (its MaxUnpool2d(2) doubles "
             f"the pooled grid exactly; the torch reference also fails "
             f"end-to-end at odd sizes) — got {H}x{W}. Use an even "
             f"--crop-size (e.g. 512) with --architecture enet.")
+    if shard is not None:
+        return sharded_max_pool(x, shard, selector=True)
     pooled, flat = F.max_pool2d(x, 3, 2, 1, return_indices=True)
     h, w = pooled.shape[2:]
     # window (r, c) starts at plane cell (2r-1, 2c-1)
@@ -71,7 +92,8 @@ def max_pool_with_indices(x: torch.Tensor):
     return pooled, (3 * dr + dc).to(torch.int8)
 
 
-def max_unpool2x(values: torch.Tensor, selector: torch.Tensor) -> torch.Tensor:
+def max_unpool2x(values: torch.Tensor, selector: torch.Tensor,
+                 shard=None) -> torch.Tensor:
     """MaxUnpool2d(2) for a 3x3/s2/p1 pool's selector, scatter-free (the
     JAX package's ``max_unpool2x``). Window (r, c) with offset (dr, dc)
     wrote its value at plane cell (2r+dr-1, 2c+dc-1); grouped by output
@@ -84,19 +106,24 @@ def max_unpool2x(values: torch.Tensor, selector: torch.Tensor) -> torch.Tensor:
                       d=(2,0) from (i, j+1);   d=(2,2) from (i, j)
 
     A collision goes to the window last in row-major order, the JAX
-    package's rule; cells no window wrote are 0."""
+    package's rule; cells no window wrote are 0. The windows (i+1, .)
+    are the rows of the band extended by one row below: the next band's
+    first row under ``shard``, else none (values 0, selectors -1)."""
     B, C, h, w = values.shape
-
-    def up(a, fill):      # read from window (i+1, j)
-        return F.pad(a[:, :, 1:], (0, 0, 0, 1), value=fill)
+    if shard is None:
+        ve = F.pad(values, (0, 0, 0, 1))
+        se = F.pad(selector, (0, 0, 0, 1), value=-1)
+    else:
+        ve, se = row_below(values, shard), row_below(selector, shard, -1)
 
     def left(a, fill):    # read from window (i, j+1)
         return F.pad(a[..., 1:], (0, 1), value=fill)
 
     zero = torch.zeros((), dtype=values.dtype, device=values.device)
-    v_l, s_l = left(values, 0), left(selector, -1)
-    v_u, s_u = up(values, 0), up(selector, -1)
-    v_ul, s_ul = up(v_l, 0), up(s_l, -1)
+    vel, sel = left(ve, 0), left(se, -1)
+    v_l, s_l = vel[:, :, :h], sel[:, :, :h]
+    v_u, s_u = ve[:, :, 1:], se[:, :, 1:]        # window (i+1, j)
+    v_ul, s_ul = vel[:, :, 1:], sel[:, :, 1:]    # window (i+1, j+1)
 
     p00 = torch.where(selector == 4, values, zero)
     p01 = torch.where(s_l == 3, v_l, torch.where(selector == 5, values, zero))
@@ -111,12 +138,12 @@ def max_unpool2x(values: torch.Tensor, selector: torch.Tensor) -> torch.Tensor:
     return torch.stack([top, bot], dim=3).reshape(B, C, 2 * h, 2 * w)
 
 
-def transposed_conv2x(cin: int, cout: int) -> nn.ConvTranspose2d:
+def transposed_conv2x(cin: int, cout: int) -> ConvTranspose2d:
     """torch ConvTranspose2d(3, stride 2, padding 1, output_padding 1),
     bias-free: exactly doubles h and w (the JAX package's
     ``ConvTranspose2dTorch``)."""
-    return nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1,
-                              output_padding=1, bias=False)
+    return ConvTranspose2d(cin, cout, 3, stride=2, padding=1,
+                           output_padding=1, bias=False)
 
 
 def _conv_bn(*convs: nn.Module) -> nn.Sequential:
@@ -138,11 +165,12 @@ class InitialBlock(nn.Module):
     def __init__(self, out_channels: int = 16, relu: bool = True):
         super().__init__()
         self.main_branch = conv(3, out_channels - 3, 3, 2, 1)
+        self.pool = MaxPool2d(3, 2, 1)
         self.batch_norm = batch_norm(out_channels)
         self.out_act = activation(relu)
 
     def forward(self, x):
-        y = torch.cat([self.main_branch(x), F.max_pool2d(x, 3, 2, 1)], dim=1)
+        y = torch.cat([self.main_branch(x), self.pool(x)], dim=1)
         return self.out_act(self.batch_norm(y))
 
 
@@ -188,6 +216,8 @@ class DownsamplingBottleneck(nn.Module):
     ``pre_dropout_only`` returns (padded main, selector, pre-dropout ext);
     ``precomputed`` takes that triple back and runs only dropout + merge."""
 
+    shard = None   # the spatial axis under spatial_rows
+
     def __init__(self, in_channels: int, out_channels: int,
                  internal_ratio: int = 4, dropout_prob: float = 0.0,
                  relu: bool = True):
@@ -203,7 +233,7 @@ class DownsamplingBottleneck(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 pre_dropout_only: bool = False, precomputed=None):
         if precomputed is None:
-            main, selector = max_pool_with_indices(x)
+            main, selector = max_pool_with_indices(x, self.shard)
             main = F.pad(main, (0, 0, 0, 0, 0, self.pad_channels))
             ext = self.act(self.ext_conv1(x))
             ext = self.act(self.ext_conv2(ext))
@@ -219,6 +249,8 @@ class UpsamplingBottleneck(nn.Module):
     """enet.py:365-483: 1x1 + BN + unpool main branch, 1x1 -> transposed
     conv -> 1x1 extension."""
 
+    shard = None   # the spatial axis under spatial_rows
+
     def __init__(self, in_channels: int, out_channels: int,
                  internal_ratio: int = 4, dropout_prob: float = 0.0,
                  relu: bool = True):
@@ -232,7 +264,7 @@ class UpsamplingBottleneck(nn.Module):
         self.act = activation(relu)
 
     def forward(self, x, selector, generator: Optional[torch.Generator] = None):
-        main = max_unpool2x(self.main_conv1(x), selector)
+        main = max_unpool2x(self.main_conv1(x), selector, self.shard)
         ext = self.act(self.ext_conv1(x))
         ext = self.act(self.ext_conv2(ext))
         ext = self.act(self.ext_conv3(ext))
@@ -262,6 +294,7 @@ def stage23_names():
 
 class ENet(nn.Module):
     model_name = "enet"
+    shard = None   # the spatial axis under spatial_rows
 
     def __init__(self, num_classes: int = 19, encoder_relu: bool = False,
                  decoder_relu: bool = True):
@@ -306,6 +339,11 @@ class ENet(nn.Module):
         if noisy_features and generator is None:
             raise ValueError("noisy_features needs an explicit torch.Generator")
         gen = generator if use_dropout else None
+        if self.shard is not None:
+            if noisy_features:
+                raise ValueError("noisy_features on height-sharded bands")
+            if x is not None:
+                check_band(self, x.shape[2])
 
         if prefix_features is None:
             y = self.initial_block(x)

@@ -20,6 +20,14 @@ The model has no dropout and no noise site: ``use_dropout``,
 selectors call, and change nothing, as in the JAX package. With
 ``upsample_logits=False`` the forward returns the classifier's 1/8
 logits, which the MC sweep upsamples and votes on unfused.
+
+Under ``parallel.spatial.spatial_rows`` ``x`` is this rank's band of
+every image's rows, a multiple of 32 rows, and the logits are the same
+band of the whole image's: the strided and depthwise convs fetch their
+halos (``layers.Conv2d``), PSP's adaptive pools average the global rows
+(``parallel.spatial.band_adaptive_pool``: the same small map on every
+rank) and resize it to this rank's rows (``resize_replicated``), and the
+fusion's 4x and the final resizes work in global row coordinates.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import torch.nn as nn
 from deep_active_semantic_segmentation_torch.models.layers import batch_norm, conv
 from deep_active_semantic_segmentation_torch.ops.interpolate import (
     resize_bilinear_align_corners)
+from deep_active_semantic_segmentation_torch.parallel.spatial import (
+    band_adaptive_pool, check_band, resize_replicated)
 
 
 class ConvBlock(nn.Module):
@@ -83,10 +93,11 @@ class InvertedResidual(nn.Module):
         return x + y if self.use_res else y
 
 
-def adaptive_pool_matrix(in_size: int, out_size: int, device) -> torch.Tensor:
+def adaptive_pool_matrix(in_size: int, out_size: int, device,
+                         dtype=torch.float32) -> torch.Tensor:
     """(out, in) averaging matrix with torch ``AdaptiveAvgPool2d``'s bin
     edges: bin i covers [floor(i*in/out), ceil((i+1)*in/out))."""
-    a = torch.zeros(out_size, in_size, device=device)
+    a = torch.zeros(out_size, in_size, device=device, dtype=dtype)
     for i in range(out_size):
         start = (i * in_size) // out_size
         end = -(-((i + 1) * in_size) // out_size)
@@ -96,17 +107,24 @@ def adaptive_pool_matrix(in_size: int, out_size: int, device) -> torch.Tensor:
 
 class _AdaptiveAvgPool(nn.Module):
     """``AdaptiveAvgPool2d(size)`` as two averaging-matrix products in f32
-    (the JAX package's ``adaptive_avg_pool``); parameter-free, so it holds
-    the reference's ``stages.{i}.0`` slot."""
+    (the JAX package's ``adaptive_avg_pool``; in f64 for an f64 ``x``);
+    parameter-free, so it holds the reference's ``stages.{i}.0`` slot.
+    ``shard``: over the global rows of the bands."""
+
+    shard = None   # the spatial axis under spatial_rows
 
     def __init__(self, size: int):
         super().__init__()
         self.size = size
 
     def forward(self, x):
-        ah = adaptive_pool_matrix(x.shape[2], self.size, x.device)
-        aw = adaptive_pool_matrix(x.shape[3], self.size, x.device)
-        y = torch.einsum("ph,bchw,qw->bcpq", ah, x.float(), aw)
+        dt = torch.promote_types(x.dtype, torch.float32)
+        n = self.shard.world if self.shard is not None else 1
+        ah = adaptive_pool_matrix(x.shape[2] * n, self.size, x.device, dt)
+        aw = adaptive_pool_matrix(x.shape[3], self.size, x.device, dt)
+        if self.shard is not None:
+            return band_adaptive_pool(x, ah, aw, self.shard)
+        y = torch.einsum("ph,bchw,qw->bcpq", ah, x.to(dt), aw)
         return y.to(x.dtype)
 
 
@@ -114,6 +132,8 @@ class PSPModule(nn.Module):
     """fastscnn.py:126-146: pyramid adaptive pools (1, 2, 3, 6), a 1x1
     conv each, align-corners upsample, concat with the input, 1x1
     bottleneck with bias, ReLU."""
+
+    shard = None   # the spatial axis under spatial_rows
 
     def __init__(self, features: int = 128, out_features: int = 128,
                  sizes=(1, 2, 3, 6)):
@@ -127,8 +147,12 @@ class PSPModule(nn.Module):
 
     def forward(self, x):
         h, w = x.shape[2:]
-        priors = [resize_bilinear_align_corners(stage(x), h, w)
-                  for stage in self.stages]
+        if self.shard is not None:
+            priors = [resize_replicated(stage(x), h, w, self.shard)
+                      for stage in self.stages]
+        else:
+            priors = [resize_bilinear_align_corners(stage(x), h, w)
+                      for stage in self.stages]
         return self.relu(self.bottleneck(torch.cat(priors + [x], dim=1)))
 
 
@@ -154,6 +178,8 @@ class FeatureFusion(nn.Module):
     """fastscnn.py:149-166: 4x upsample of the low-resolution branch,
     depthwise ConvBlock, 1x1; plus a 1x1 of the high-resolution branch."""
 
+    shard = None   # the spatial axis under spatial_rows
+
     def __init__(self):
         super().__init__()
         self.sconv1 = ConvBlock(128, 128, stride=1, groups=128)
@@ -163,7 +189,7 @@ class FeatureFusion(nn.Module):
 
     def forward(self, high, low):
         low = resize_bilinear_align_corners(low, low.shape[2] * 4,
-                                            low.shape[3] * 4)
+                                            low.shape[3] * 4, self.shard)
         low = self.conv_low_res(self.sconv1(low))
         return self.relu(self.conv_high_res(high) + low)
 
@@ -182,6 +208,7 @@ class Classifier(nn.Module):
 
 class FastSCNN(nn.Module):
     model_name = "fastscnn"
+    shard = None   # the spatial axis under spatial_rows
 
     def __init__(self, num_classes: int = 19):
         super().__init__()
@@ -194,19 +221,23 @@ class FastSCNN(nn.Module):
     def forward(self, x, use_dropout: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None,
                 noisy_features: bool = False, upsample_logits: bool = True):
-        for side in x.shape[2:]:
+        height = x.shape[2]
+        if self.shard is not None:
+            check_band(self, height)
+            height *= self.shard.world
+        for side in (height, x.shape[3]):
             if -(-side // 8) % 4:
                 raise ValueError(
                     f"FastSCNN's feature fusion adds a 1/8 map to a 4x "
                     f"upsample of a 1/32 one, which only meet when "
                     f"ceil(side / 8) is a multiple of 4 (the reference and "
                     f"the JAX package fail at other sizes too) - got "
-                    f"{tuple(x.shape[2:])}. Use e.g. --crop-size 512.")
+                    f"{(height, x.shape[3])}. Use e.g. --crop-size 512.")
         shared = self.learning_to_downsample(x)
         y = self.feature_fusion(shared, self.global_feature_extractor(shared))
         y = self.classifier(y)
         if upsample_logits:
-            y = resize_bilinear_align_corners(y, x.shape[2], x.shape[3])
+            y = resize_bilinear_align_corners(y, x.shape[2], x.shape[3], self.shard)
         return y
 
 

@@ -5,7 +5,8 @@
   may be (h, w) pairs (ENet's asymmetric 5x1 / 1x5 convs). The conv is a
   ``Conv2d``: under ``parallel.spatial.spatial_rows`` (the height-sharded
   step) a conv whose window spans rows fetches the rows it reads across
-  the bands' edges first.
+  the bands' edges first; ``MaxPool2d`` and ``ConvTranspose2d`` do the
+  same for the 3x3 / stride 2 pool and transposed conv.
   ``init_weights`` draws every conv and transposed-conv kernel
   kaiming-normal (fan_in, gain^2 = 2, untruncated) from an explicit
   generator, BN weight 1 / bias 0, conv bias 0.
@@ -37,7 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deep_active_semantic_segmentation_torch.parallel.spatial import (
-    sharded_conv)
+    sharded_conv, sharded_conv_transpose, sharded_max_pool)
 
 Pair = Union[int, Tuple[int, int]]
 
@@ -57,6 +58,34 @@ class Conv2d(nn.Conv2d):
         if self.shard is None or (self.kernel_size[0], self.stride[0]) == (1, 1):
             return super().forward(x)
         return sharded_conv(self, x, self.shard)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d(3, 2, 1)`` (no state). ``shard``: as ``Conv2d``'s;
+    the pool then runs as ``parallel.spatial.sharded_max_pool`` (its
+    padding -inf at the global top only)."""
+
+    shard = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is None:
+            return super().forward(x)
+        if (self.kernel_size, self.stride, self.padding) != (3, 2, 1):
+            raise NotImplementedError(f"a height-sharded {self}")
+        return sharded_max_pool(x, self.shard)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (the same parameters and state_dict keys).
+    ``shard``: as ``Conv2d``'s; the 3x3 / stride 2 transposed conv then
+    runs as ``parallel.spatial.sharded_conv_transpose``."""
+
+    shard = None
+
+    def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+        if self.shard is None:
+            return super().forward(x, output_size)
+        return sharded_conv_transpose(self, x, self.shard)
 
 
 def conv(cin: int, cout: int, kernel: Pair, stride: int = 1, padding: Pair = 0,

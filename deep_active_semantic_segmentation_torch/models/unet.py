@@ -11,6 +11,13 @@ a zero-refreshed even canvas at odd sizes (its ops/s2d.py): TPU lane
 workarounds that compute the plain UNet term for term. This is the plain
 UNet. Module names are the reference's ``state_dict`` keys
 (``dconv_downN.{0,1,3,4}``, ``dconv_upN.{0,1,3,4}``, ``conv_last``).
+
+Under ``parallel.spatial.spatial_rows`` ``x`` is this rank's band of
+every image's rows, a multiple of 8 rows, and the logits are the same
+band of the whole image's: the 3x3 convs fetch their halos
+(``layers.Conv2d``), the 2x2 pools stay local (a band's rows split
+evenly at every level) and the skip resizes work in global row
+coordinates.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from deep_active_semantic_segmentation_torch.models.layers import batch_norm, conv
 from deep_active_semantic_segmentation_torch.ops.interpolate import (
     resize_bilinear_align_corners)
+from deep_active_semantic_segmentation_torch.parallel.spatial import check_band
 
 
 def double_conv(cin: int, cout: int) -> nn.Sequential:
@@ -34,6 +42,7 @@ def double_conv(cin: int, cout: int) -> nn.Sequential:
 
 class UNet(nn.Module):
     model_name = "unet"
+    shard = None   # the spatial axis under spatial_rows
 
     def __init__(self, in_channels: int = 3, num_classes: int = 2):
         super().__init__()
@@ -52,12 +61,14 @@ class UNet(nn.Module):
         the segmentation models (dropout, its generator) are accepted and
         ignored: the UNet has no dropout site."""
         h, w = x.shape[2:]
+        if self.shard is not None:
+            check_band(self, h)
         conv1 = self.dconv_down1(x)
         conv2 = self.dconv_down2(F.max_pool2d(conv1, 2))
         conv3 = self.dconv_down3(F.max_pool2d(conv2, 2))
         y = self.dconv_down4(F.max_pool2d(conv3, 2))
         for skip, block in ((conv3, self.dconv_up3), (conv2, self.dconv_up2),
                             (conv1, self.dconv_up1)):
-            y = resize_bilinear_align_corners(y, *skip.shape[2:])
+            y = resize_bilinear_align_corners(y, *skip.shape[2:], self.shard)
             y = block(torch.cat([y, skip], dim=1))
-        return resize_bilinear_align_corners(self.conv_last(y), h, w)
+        return resize_bilinear_align_corners(self.conv_last(y), h, w, self.shard)

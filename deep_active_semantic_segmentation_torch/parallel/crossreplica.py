@@ -42,14 +42,17 @@ import torch.nn.functional as F
 
 
 class _CrossReplicaSum(torch.autograd.Function):
+    """The all-reduce takes a contiguous copy: NCCL refuses other strides
+    (an einsum's output, a gradient cuDNN left channels-last)."""
+
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
-        return mesh.all_reduce(x.clone())
+        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format))
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.mesh.all_reduce(grad.clone()), None
+        return ctx.mesh.all_reduce(grad.clone(memory_format=torch.contiguous_format)), None
 
 
 def cross_replica_sum(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -1,25 +1,38 @@
 """The spatial (height-sharded) half of the mesh (parity: the JAX package's
 ``make_train_step(spatial=True)``, parallel/steps.py:100-101 and
-:203-206, whose ``P('data', 'spatial')`` sharding has XLA insert the conv
-halo exchanges and the global reductions).
+:203-206, whose ``P('data', 'spatial')`` sharding has XLA insert the
+halo exchanges and the global reductions for any model the step takes).
 
 The ranks of one data row (``axis``: ``mesh.axis('spatial')``) each hold
 an equal band of rows of every image of that row: rank q of n holds the
 global rows ``[q h, (q + 1) h)`` of an H = n h tensor. Under
-``spatial_rows(model, axis)`` DeepLab-MobileNetV2 runs its forward on
-such bands and computes what the unsharded forward computes on the whole
-image (the model files say where). The primitives:
+``spatial_rows(model, axis)`` DeepLab (MobileNetV2, ResNet-50/101; os16
+and os8), ENet, FastSCNN and the UNet run their forward on such bands
+and compute what the unsharded forward computes on the whole image (the
+model files say where). The primitives:
 
 * ``shard_rows``: this rank's rows of an image, refusing a height that
-  does not split into equal bands at every stride of the os16 network.
+  does not split into equal bands at every stride of the model
+  (``row_multiple``).
 * ``fetch_rows``: global rows ``[a, b)`` of a sharded tensor, its own
   band and the halo its neighbours (or ranks further off) hold; rows
   outside the tensor are zero.
 * ``sharded_conv``: a conv over the global rows, halo fetched first.
+* ``sharded_max_pool``: the 3x3 / stride 2 / padding 1 max pool, one halo
+  row above, -inf above the global top only (and ENet's window-offset
+  selector counted on the fetched rows).
+* ``sharded_conv_transpose``: the 3x3 / stride 2 / padding 1 / output
+  padding 1 transposed conv, one halo row below.
+* ``row_below``: a band with the next global row under it (ENet's
+  unpool reads window i + 1), a fill past the global bottom; an integer
+  tensor (the int8 selector) crosses exactly, without a gradient.
 * ``spatial_mean``: the mean over the global rows and every column.
+* ``band_adaptive_pool``: an adaptive average pool of the global rows
+  (FastSCNN's pyramid), the same small map on every rank of the row.
 * ``resize_rows``: the align-corners bilinear resize in global row
   coordinates (a band's output rows read source rows across its edge);
-  the columns resize locally.
+  the columns resize locally. ``resize_replicated`` takes this rank's
+  rows of the resize of a map every rank holds whole.
 
 Transport: each exchange is one all-reduce, over the row's ranks, of a
 zero buffer into which every row is written by its one owner, so rows
@@ -45,24 +58,21 @@ import torch.nn.functional as F
 from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
     cross_replica_sum)
 
-# the network's largest stride (MobileNetV2 at output stride 16): each
-# band must split equally at every stride-2 stage and at the os16 map
+# a band's rows must split equally at every stride-2 stage: a multiple of
+# the network's largest stride (DeepLab's is its output stride; 16, the
+# canonical os16 network's, is the default of ``shard_rows``)
 ROW_MULTIPLE = 16
-
-# the ROADMAP items that will give each model its height-sharded forward
-NOT_PORTED = {"deeplab": "A15c (DeepLab-ResNet)", "enet": "A15d (ENet)",
-              "fastscnn": "A15e (FastSCNN)", "unet": "A15f (UNet)",
-              "accuracy_predictor": "A15g (the two-headed accuracy predictor)"}
+ROW_MULTIPLES = {"enet": 8, "fastscnn": 32, "unet": 8}
 
 Span = Tuple[int, int]
 
 
 def shard_rows(height: int, mesh, multiple: int = ROW_MULTIPLE) -> Span:
     """(start, end) of this rank's rows of an image ``height`` rows high,
-    on ``mesh`` (any mesh: its ``spatial_rank`` of ``spatial_world``).
-    Raises a ``ValueError`` unless ``height % (spatial * multiple) == 0``
-    (the counterpart of JAX's ``device_put`` refusing 513 rows on 2
-    spatial devices)."""
+    on ``mesh`` (any mesh: its ``spatial_rank`` of ``spatial_world``);
+    ``multiple``: the model's ``row_multiple``. Raises a ``ValueError``
+    unless ``height % (spatial * multiple) == 0`` (the counterpart of
+    JAX's ``device_put`` refusing 513 rows on 2 spatial devices)."""
     n = mesh.spatial_world
     if height % (n * multiple):
         raise ValueError(f"a height of {height} does not split over {n} spatial "
@@ -208,6 +218,59 @@ def sharded_conv(conv, x: torch.Tensor, axis) -> torch.Tensor:
                     conv.dilation, conv.groups)
 
 
+def sharded_max_pool(x: torch.Tensor, axis, selector: bool = False):
+    """``MaxPool2d(3, 2, 1)`` over the global rows of the height-sharded
+    ``x``: each rank's output band reads its rows and one halo row above,
+    -inf above the global top (the pool's padding) and the neighbour's
+    real row elsewhere. ``selector``: also return ENet's int8 offset
+    ``3 dr + dc`` of each window's first maximum (``models.enet``), counted
+    on the fetched rows, where window r starts at row 2r (global 2R - 1),
+    so the offsets are the whole image's."""
+    n, r, h = axis.world, axis.rank, x.shape[2]
+    rows = fetch_rows(x, axis, equal_bands(h, n),
+                      [(max(q * h - 1, 0), (q + 1) * h) for q in range(n)])
+    if r == 0:
+        rows = F.pad(rows, (0, 0, 1, 0), value=float("-inf"))
+    if not selector:
+        return F.max_pool2d(rows, 3, 2, (0, 1))
+    pooled, flat = F.max_pool2d(rows, 3, 2, (0, 1), return_indices=True)
+    w = x.shape[3]
+    dr = flat // w - 2 * torch.arange(pooled.shape[2], device=x.device)[:, None]
+    dc = flat % w - 2 * torch.arange(pooled.shape[3], device=x.device) + 1
+    return pooled, (3 * dr + dc).to(torch.int8)
+
+
+def sharded_conv_transpose(tconv, x: torch.Tensor, axis) -> torch.Tensor:
+    """``tconv`` (an ``nn.ConvTranspose2d(k=3, stride 2, padding 1, output
+    padding 1)``, which doubles the rows) over the global rows of the
+    height-sharded ``x``: output rows [2s, 2e) read input rows [s, e + 1),
+    one halo row below (zero past the global bottom). Transposed with row
+    padding 1 and no output padding, the h + 1 fetched rows give 2h + 1
+    rows whose first 2h are this rank's."""
+    if (tconv.kernel_size[0], tconv.stride[0], tconv.padding[0],
+            tconv.output_padding[0], tconv.dilation[0]) != (3, 2, 1, 1, 1):
+        raise NotImplementedError(f"a height-sharded {tconv}")
+    h = x.shape[2]
+    rows = row_below(x, axis)
+    y = F.conv_transpose2d(rows, tconv.weight, tconv.bias, tconv.stride, tconv.padding,
+                           (0, tconv.output_padding[1]), tconv.groups, tconv.dilation)
+    return y[:, :, :2 * h]
+
+
+def row_below(x: torch.Tensor, axis, fill: float = 0) -> torch.Tensor:
+    """This rank's band of the height-sharded ``x`` with the next global
+    row under it: the next band's first row, or ``fill`` below the global
+    bottom. An integer tensor (ENet's int8 selector) crosses exactly (the
+    f32 buffer holds it) and carries no gradient."""
+    n, r, h = axis.world, axis.rank, x.shape[2]
+    wants = [(q * h, min((q + 1) * h + 1, n * h)) for q in range(n)]
+    with torch.set_grad_enabled(torch.is_grad_enabled() and x.is_floating_point()):
+        rows = fetch_rows(x, axis, equal_bands(h, n), wants)
+    if r == n - 1:
+        rows = F.pad(rows, (0, 0, 0, 1), value=fill)
+    return rows
+
+
 def spatial_mean(x: torch.Tensor, axis) -> torch.Tensor:
     """(B, C, 1, 1): the mean of the height-sharded ``x`` over the global
     rows and every column (ASPP's global average pool), on every rank of
@@ -217,6 +280,21 @@ def spatial_mean(x: torch.Tensor, axis) -> torch.Tensor:
     return (cross_replica_sum(total, axis) / count).to(x.dtype)
 
 
+def band_adaptive_pool(x: torch.Tensor, rows_matrix: torch.Tensor,
+                       cols_matrix: torch.Tensor, axis) -> torch.Tensor:
+    """(B, C, p, q): an adaptive average pool of the height-sharded ``x``
+    over the global rows, the same map on every rank of the row.
+    ``rows_matrix`` (p, H) averages the H = n h global rows,
+    ``cols_matrix`` (q, w) the columns: each rank multiplies its rows'
+    columns of ``rows_matrix`` with its band, and the row's ranks sum
+    the products (``cross_replica_sum``, in the matrices' dtype, also
+    where autocast forms the products in bf16)."""
+    h, r = x.shape[2], axis.rank
+    part = torch.einsum("ph,bchw,qw->bcpq", rows_matrix[:, r * h:(r + 1) * h],
+                        x.to(rows_matrix.dtype), cols_matrix)
+    return cross_replica_sum(part.to(rows_matrix.dtype), axis).to(x.dtype)
+
+
 def _sources(in_rows: int, out_rows: int, q: int, per: int):
     """(i0, i1, frac) of output rows [q per, (q + 1) per) of an
     align-corners resize from ``in_rows`` to ``out_rows`` global rows."""
@@ -224,6 +302,21 @@ def _sources(in_rows: int, out_rows: int, q: int, per: int):
     src = np.arange(q * per, (q + 1) * per) * scale
     i0 = np.minimum(np.floor(src).astype(np.int64), in_rows - 1)
     return i0, np.minimum(i0 + 1, in_rows - 1), src - i0
+
+
+def _lerp(rows: torch.Tensor, i0, i1, frac, out_w: int) -> torch.Tensor:
+    """Output rows ``rows[i0] (1 - frac) + rows[i1] frac``, then the
+    columns resized to ``out_w`` (align corners), locally."""
+    dev, dt = rows.device, rows.dtype
+    f = torch.as_tensor(frac, dtype=dt, device=dev).view(1, 1, -1, 1)
+    g = torch.as_tensor(1.0 - frac, dtype=dt, device=dev).view(1, 1, -1, 1)
+    y = (rows.index_select(2, torch.as_tensor(i0, device=dev)) * g
+         + rows.index_select(2, torch.as_tensor(i1, device=dev)) * f)
+    if out_w != rows.shape[3]:
+        b, c, out_h = y.shape[:3]
+        y = F.interpolate(y.reshape(b, c * out_h, rows.shape[3]), size=out_w,
+                          mode="linear", align_corners=True).reshape(b, c, out_h, out_w)
+    return y
 
 
 def resize_rows(x: torch.Tensor, out_h: int, out_w: int, axis) -> torch.Tensor:
@@ -241,31 +334,51 @@ def resize_rows(x: torch.Tensor, out_h: int, out_w: int, axis) -> torch.Tensor:
     rows = fetch_rows(x, axis, equal_bands(h, n), wants)
     i0, i1, frac = _sources(h * n, out_h * n, r, out_h)
     a = wants[r][0]
-    dev = x.device
-    f = torch.as_tensor(frac, dtype=x.dtype, device=dev).view(1, 1, -1, 1)
-    g = torch.as_tensor(1.0 - frac, dtype=x.dtype, device=dev).view(1, 1, -1, 1)
-    y = (rows.index_select(2, torch.as_tensor(i0 - a, device=dev)) * g
-         + rows.index_select(2, torch.as_tensor(i1 - a, device=dev)) * f)
-    if out_w != x.shape[3]:
-        b, c = y.shape[:2]
-        y = F.interpolate(y.reshape(b, c * out_h, x.shape[3]), size=out_w,
-                          mode="linear", align_corners=True).reshape(b, c, out_h, out_w)
-    return y
+    return _lerp(rows, i0 - a, i1 - a, frac, out_w)
+
+
+def resize_replicated(x: torch.Tensor, out_h: int, out_w: int, axis) -> torch.Tensor:
+    """This rank's ``out_h`` rows of the align-corners bilinear resize of
+    ``x``, which every rank of the row holds whole (a pooled map), to
+    ``out_h * n`` by ``out_w``: local, no exchange."""
+    i0, i1, frac = _sources(x.shape[2], out_h * axis.world, axis.rank, out_h)
+    return _lerp(x, i0, i1, frac, out_w)
+
+
+def row_multiple(model) -> int:
+    """The rows a band of ``model``'s input must be a multiple of: its
+    largest stride (DeepLab's output stride, 16 or 8; ENet 8; FastSCNN
+    32; the UNet 8)."""
+    name = getattr(model, "model_name", type(model).__name__)
+    if name == "deeplab":
+        return model.output_stride
+    return ROW_MULTIPLES[name]
+
+
+def check_band(model, rows: int) -> None:
+    """Raise a ``ValueError`` unless a band of ``rows`` rows splits at
+    every stride of ``model``."""
+    multiple = row_multiple(model)
+    if rows % multiple:
+        raise ValueError(f"a band of {rows} rows: the spatial step needs height "
+                         f"% (spatial * {multiple}) == 0")
 
 
 def check_model(model) -> None:
     """Raise ``NotImplementedError`` unless ``model`` has a height-sharded
-    forward (DeepLab-MobileNetV2, the model JAX's ``dryrun_multichip``
-    runs), naming the ROADMAP item that will port it."""
-    from deep_active_semantic_segmentation_torch.models.backbone.mobilenet import (
-        MobileNetV2)
-
+    forward: every model JAX's ``make_train_step(spatial=True)`` takes
+    (DeepLab with any backbone, ENet, FastSCNN, the UNet). The two-headed
+    accuracy predictor has none, as in the JAX package."""
     name = getattr(model, "model_name", type(model).__name__)
-    if name == "deeplab" and isinstance(model.backbone, MobileNetV2):
+    if name == "deeplab" or name in ROW_MULTIPLES:
         return
-    raise NotImplementedError(
-        f"the spatial (height-sharded) step runs DeepLab-MobileNetV2 only; "
-        f"{NOT_PORTED.get(name, name)} is not ported to it yet (ROADMAP)")
+    if name == "accuracy_predictor":
+        raise NotImplementedError(
+            "the two-headed accuracy predictor has no spatial (height-sharded) "
+            "step: the JAX package's make_dual_train_step shards the batch over "
+            "'data' only and takes no spatial argument, and its make_train_step"
+            "(spatial=True) cannot take a model with two heads")
+    raise NotImplementedError(f"{name} has no spatial (height-sharded) forward")
 
 
 @contextlib.contextmanager
@@ -273,8 +386,9 @@ def spatial_rows(model, axis):
     """For the length of a ``with`` block, ``model``'s forward takes the
     height-sharded band of each image on every rank of ``axis`` (the
     module docstring): every module with a ``shard`` attribute (the
-    convs, the inverted residuals' fixed padding, ASPP's pool, the
-    decoder's and the head's resizes) gets ``axis``. A one-rank axis (or
+    convs, pools and transposed convs, the inverted residuals' fixed
+    padding, the global and adaptive pools, the resizes, ENet's unpool)
+    gets ``axis``. A one-rank axis (or
     None) changes nothing."""
     if axis is None or axis.world == 1:
         yield

@@ -30,11 +30,16 @@ the dropout masks are the global batch's rows (``layers.dropout_rows``).
 The eval step all-reduces the confusion matrix and the valid count.
 
 ``make_train_step(spatial=True)`` on a mesh with a spatial axis
-(``make_mesh(spatial=)``, JAX's ``P('data', 'spatial')`` step) takes on
-each rank its data row's images and its band of their rows
-(``parallel.spatial.shard_rows``): the forward runs under
-``parallel.spatial.spatial_rows`` (halo exchanges, the global pool and
-resizes), the BN statistics merge over every rank, the loss (built with
+(``make_mesh(spatial=)``, JAX's ``P('data', 'spatial')`` step) takes
+every model JAX's spatial step takes (DeepLab with MobileNetV2 or
+ResNet-50/101 at os16 or os8, ENet, FastSCNN, the UNet; not the
+two-headed accuracy predictor, which the JAX package has no spatial step
+for) and on each rank its data row's images and its band of their rows
+(``parallel.spatial.shard_rows`` at the model's
+``parallel.spatial.row_multiple``): the forward runs under
+``parallel.spatial.spatial_rows`` (halo exchanges for the convs, pools, transposed
+convs and ENet's unpool, the global and pyramid pools, the resizes), the
+BN statistics merge over every rank, the loss (built with
 the mesh) sums over every rank and counts the data rows, and DDP
 averages the ranks' partial gradients over the whole world. Without
 ``spatial`` on such a mesh the step is JAX's ``P('data')`` step: the
@@ -117,8 +122,8 @@ def make_train_step(model, optimizer, loss_fn: Callable, schedule: Callable,
     gradients would be wrong. ``norm``: as in ``ingest``. ``mesh``: see
     the module docstring; ``generator`` is then in the same state on
     every rank. ``spatial``: shard the height over the mesh's spatial
-    axis (the module docstring; DeepLab-MobileNetV2 only, its BNs
-    converted to ``CrossReplicaBatchNorm2d`` with ``mesh``)."""
+    axis (the module docstring; any model but the accuracy predictor,
+    its BNs converted to ``CrossReplicaBatchNorm2d`` with ``mesh``)."""
     bf16 = _autocast_bf16(compute_dtype, remat)
     net, rows, shard, bn_axis = model, (0, 1), None, None
     if spatial:

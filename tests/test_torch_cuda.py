@@ -687,3 +687,48 @@ def test_spatial_step_on_two_ranks_sharing_the_card_equals_one_process(cuda_devi
     scale = max(float(ref[k].abs().max()) for k in floats)
     err = max(float((sd0[k] - ref[k]).abs().max()) for k in floats)
     assert err <= 1e-10 * scale, (err, scale)
+
+
+@pytest.mark.cuda
+def test_enet_spatial_step_on_two_ranks_sharing_the_card_equals_one_process(cuda_device,
+                                                                             tmp_path):
+    """The height-sharded ENet step (its pool, unpool and transposed-conv
+    halos; a (1x2) mesh of two gloo ranks sharing ``cuda:0``, 32 rows of
+    2 images at side 64 each, dropout from a generator on the card)
+    against one process on the card on the whole images: f64 weights,
+    the state (BN running statistics included) within 1e-10 of the
+    largest, the f32 loss within 1e-6. The class weights lie on a 1/8
+    grid, so the loss's f32 normalizer is exact in any summation order."""
+    import numpy as np
+
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.parallel import mesh as pt_mesh
+    import torch_parallel_workers as workers
+
+    rng = np.random.RandomState(1)
+    gen = torch.Generator().manual_seed(12)
+    model = build_model("enet", 5, device="cpu", generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    label = np.kron(rng.randint(0, 5, (2, 4, 4)), np.ones((1, 16, 16), int)).astype(np.uint8)
+    label[:, :20] = 255
+    image = rng.randint(0, 256, label.shape + (3,), dtype=np.uint8)
+    setup = {"arch": "enet", "classes": 5, "state_dict": model.state_dict(),
+             "image": image, "label": label,
+             "cw": (rng.randint(4, 17, 5) / 8).astype(np.float32), "dropout_seed": 7}
+    torch.save(setup, str(tmp_path / "setup.pt"))
+    pt_mesh.launch(workers.spatial_card_checks, (str(tmp_path / "setup.pt"), str(tmp_path)),
+                   num_devices=2, device="cuda:0", backend="gloo", timeout=120,
+                   join_timeout=300, spatial=2)
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    ref_loss, ref = workers.spatial_train_step(None, setup, dropout_seed=7,
+                                               device=cuda_device)
+    (loss0, sd0), (loss1, sd1) = (r["f64_step"] for r in ranks)
+    assert loss0 == loss1 and all(torch.equal(sd0[k], sd1[k]) for k in sd0)
+    assert abs(loss0 - ref_loss) <= 1e-6 * abs(ref_loss)
+    floats = [k for k, v in ref.items() if v.is_floating_point()]
+    scale = max(float(ref[k].abs().max()) for k in floats)
+    err = max(float((sd0[k] - ref[k]).abs().max()) for k in floats)
+    assert err <= 1e-10 * scale, (err, scale)

@@ -119,7 +119,7 @@ def test_input_and_parameter_gradients_match_jax(pairs, config, kind, monkeypatc
     pools = []
     pool = pt_enet.max_pool_with_indices
     monkeypatch.setattr(pt_enet, "max_pool_with_indices",
-                        lambda t: pools.append(t.detach()) or pool(t))
+                        lambda t, shard=None: pools.append(t.detach()) or pool(t, shard))
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_(True)
     port.zero_grad(set_to_none=True)
     out = port(xt, use_dropout=False)

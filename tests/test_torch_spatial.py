@@ -356,13 +356,13 @@ def test_a_world_the_spatial_axis_does_not_divide_is_refused(world, spatial):
 
 
 @pytest.mark.parametrize("arch,backbone,item", [
-    ("deeplab", "resnet", "A15c"), ("enet", "mobilenet", "A15d"),
-    ("fastscnn", "mobilenet", "A15e"), ("unet", "mobilenet", "A15f"),
-    ("accuracy_predictor", "mobilenet", "A15g")])
+    ("accuracy_predictor", "mobilenet", "make_dual_train_step shards the batch over "
+                                        "'data' only")])
 def test_other_models_are_refused_on_the_spatial_axis(arch, backbone, item):
-    """Only DeepLab-MobileNetV2 has a height-sharded forward; every other
-    model raises, naming the ROADMAP item that will port it, before any
-    collective runs."""
+    """The two-headed accuracy predictor has no height-sharded forward (the
+    JAX package has no spatial dual step, and its spatial
+    ``make_train_step`` cannot take two heads): it raises, naming why,
+    before any collective runs."""
     model = build_model(arch, NUM_CLASSES, backbone=backbone, device="cpu")
     axis = pt_mesh.Mesh(0, 2)
     with pytest.raises(NotImplementedError, match=item):

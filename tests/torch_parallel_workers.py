@@ -1,6 +1,7 @@
 """Rank functions for the port's two-rank CPU tests
 (tests/test_torch_parallel.py, tests/test_torch_sharded_scoring.py,
-tests/test_torch_dual_parallel.py, tests/test_torch_parallel_drivers.py).
+tests/test_torch_dual_parallel.py, tests/test_torch_parallel_drivers.py,
+tests/test_torch_spatial.py, tests/test_torch_spatial_zoo.py).
 
 Each runs in a process that ``parallel.mesh.launch`` spawned (gloo, CPU),
 as ``fn(mesh, setup_path, out_dir)``: it reads its inputs from the torch
@@ -391,6 +392,8 @@ def _conv_band(mesh, case):
 
 def spatial_primitives(mesh, cases):
     """Each case's forward band and gradients on this rank (f64)."""
+    from deep_active_semantic_segmentation_torch.models.enet import (
+        max_unpool2x, transposed_conv2x)
     from deep_active_semantic_segmentation_torch.models.layers import conv
     from deep_active_semantic_segmentation_torch.parallel import spatial
 
@@ -414,17 +417,61 @@ def spatial_primitives(mesh, cases):
             out.append({"y": y.detach().numpy(), "dx": x.grad.numpy(),
                         "dw": layer.weight.grad.numpy()})
             continue
+        if case["kind"] in ("adaptive_pool", "resize_replicated"):
+            out.append(_replicated_case(mesh, axis, case))
+            continue
         x = _band(mesh, x_all).clone().requires_grad_(True)
+        got = {}
         if case["kind"] == "resize":
             oh, ow = case["out"]
             y = spatial.resize_rows(x, oh // mesh.spatial_world, ow, axis)
-            dy = _band(mesh, torch.from_numpy(case["dy"]))
-        else:   # the global mean
+        elif case["kind"] == "mean":
             y = spatial.spatial_mean(x, axis)
-            dy = torch.from_numpy(case["dy"])
+        elif case["kind"] == "max_pool":
+            y, selector = spatial.sharded_max_pool(x, axis, selector=True)
+            got["selector"] = selector.numpy()
+        elif case["kind"] == "conv_transpose":
+            w = torch.from_numpy(case["weight"])
+            layer = transposed_conv2x(w.shape[0], w.shape[1]).double()
+            with torch.no_grad():
+                layer.weight.copy_(w)
+            layer.shard = axis
+            y = layer(x)
+        else:   # ENet's unpool, its selector from the whole image's pool
+            selector = _band(mesh, torch.from_numpy(case["selector"]))
+            y = max_unpool2x(x, selector, axis)
+        dy = (torch.from_numpy(case["dy"]) if case["kind"] == "mean"
+              else _band(mesh, torch.from_numpy(case["dy"])))
         (y * dy).sum().backward()
-        out.append({"y": y.detach().numpy(), "dx": x.grad.numpy()})
+        got.update(y=y.detach().numpy(), dx=x.grad.numpy())
+        if case["kind"] == "conv_transpose":
+            got["dw"] = layer.weight.grad.numpy()
+        out.append(got)
     return out
+
+
+def _replicated_case(mesh, axis, case):
+    """FastSCNN's pyramid pool on the bands (the same map on every rank)
+    or the resize of a map every rank holds to this rank's rows."""
+    from deep_active_semantic_segmentation_torch.models.fastscnn import (
+        adaptive_pool_matrix)
+    from deep_active_semantic_segmentation_torch.parallel import spatial
+
+    x_all = torch.from_numpy(case["x"])
+    if case["kind"] == "adaptive_pool":
+        x = _band(mesh, x_all).clone().requires_grad_(True)
+        size = case["size"]
+        y = spatial.band_adaptive_pool(
+            x, adaptive_pool_matrix(x_all.shape[2], size, "cpu", x.dtype),
+            adaptive_pool_matrix(x_all.shape[3], size, "cpu", x.dtype), axis)
+        dy = torch.from_numpy(case["dy"])
+    else:
+        x = x_all.clone().requires_grad_(True)
+        oh, ow = case["out"]
+        y = spatial.resize_replicated(x, oh // mesh.spatial_world, ow, axis)
+        dy = _band(mesh, torch.from_numpy(case["dy"]))
+    (y * dy).sum().backward()
+    return {"y": y.detach().numpy(), "dx": x.grad.numpy()}
 
 
 def spatial_losses(mesh, setup):
@@ -453,13 +500,40 @@ def spatial_losses(mesh, setup):
     return out
 
 
+def _spatial_model(setup, mesh, device):
+    """The setup's model (``arch``, ``backbone``, ``os``, ``classes``;
+    DeepLab-MobileNetV2 os16, 19 classes, by default) in train mode with
+    its BNs converted for ``mesh``."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+    from deep_active_semantic_segmentation_torch.parallel.crossreplica import (
+        convert_cross_replica_bn)
+
+    model = build_model(setup.get("arch", "deeplab"), setup.get("classes", 19),
+                        backbone=setup.get("backbone", "mobilenet"),
+                        output_stride=setup.get("os", 16), mc_dropout=True,
+                        device=device)
+    model.load_state_dict(setup["state_dict"])
+    return convert_cross_replica_bn(model.train(), mesh)
+
+
+def _freeze_bn(model):
+    """``model`` with every batch norm at its running statistics (eval
+    mode) while the rest trains."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.eval()
+    return model
+
+
 def spatial_train_step(mesh, setup, dtype=torch.float64, spatial=True,
-                       dropout_seed=None, device="cpu"):
-    """One SGD step (lr 0.01, balanced weights) of the setup's DeepLab on
-    this rank's data rows (``spatial``: and its band of their rows), f64
-    weights on the host-normalized f64 image or f32 on the uint8 wire;
-    (loss, state_dict on the host). ``mesh`` None: one process on the
-    whole batch, on ``device``; dropout from a generator on the device."""
+                       dropout_seed=None, device="cpu", frozen_bn=False):
+    """One SGD step (lr 0.01, the setup's class weights) of the setup's
+    model (``_spatial_model``; ``frozen_bn``: its batch norms at their
+    running statistics) on this rank's data rows (``spatial``: and its
+    band of their rows), f64 weights on the host-normalized f64 image or
+    f32 on the uint8 wire; (loss, state_dict on the host). ``mesh`` None:
+    one process on the whole batch, on ``device``; dropout from a
+    generator on the device."""
     from deep_active_semantic_segmentation_torch.models.factory import param_groups
     from deep_active_semantic_segmentation_torch.ops.losses import build_loss
     from deep_active_semantic_segmentation_torch.ops.lr_schedule import (
@@ -470,11 +544,13 @@ def spatial_train_step(mesh, setup, dtype=torch.float64, spatial=True,
         make_train_step)
 
     device = mesh.device if mesh is not None else torch.device(device)
-    model = _deeplab(setup["state_dict"], mesh).to(device, dtype)
+    model = _spatial_model(setup, mesh, device).to(device, dtype)
+    if frozen_bn:
+        _freeze_bn(model)
     gen = (None if dropout_seed is None
            else torch.Generator(device=device).manual_seed(dropout_seed))
     step = make_train_step(
-        model, build_optimizer("SGD", param_groups(model, "deeplab")),
+        model, build_optimizer("SGD", param_groups(model, setup.get("arch", "deeplab"))),
         build_loss("ce", class_weights=torch.from_numpy(setup["cw"]).to(device),
                    mesh=mesh),
         constant_schedule(0.01), generator=gen, mesh=mesh,
@@ -515,6 +591,58 @@ def spatial_checks(mesh, setup_path, out_dir):
         # rank 0's tensors in full, every rank's digest of them
         for name, (loss, state) in steps.items():
             out[name] = (loss, state if mesh.main else None, state_digest(state))
+    _save(mesh, out_dir, out)
+
+
+def zoo_state_dict(spec, seed: int = 4):
+    """The weights of ``spec``'s model (``_spatial_model``'s keys) drawn
+    from ``seed``, its BN biases ~0.1 N(0, 1) (off the ReLU kinks,
+    ROADMAP C): the same in the test process and in every rank."""
+    from deep_active_semantic_segmentation_torch.models.factory import build_model
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(spec["arch"], spec["classes"], backbone=spec["backbone"],
+                        output_stride=spec["os"], mc_dropout=True, device="cpu",
+                        generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    return model.state_dict()
+
+
+def state_gap(got, want) -> float:
+    """The largest difference of ``got``'s floating tensors from
+    ``want``'s over ``want``'s largest value (its other tensors equal)."""
+    floats = [k for k, v in want.items() if v.is_floating_point()]
+    scale = max(float(want[k].abs().max()) for k in floats)
+    assert all(torch.equal(got[k], v) for k, v in want.items()
+               if not v.is_floating_point())
+    return max(float((got[k] - want[k]).abs().max()) for k in floats) / scale
+
+
+def spatial_zoo_checks(mesh, setup_path, out_dir):
+    """On this rank of a (data x spatial) mesh: the primitives, then each
+    of the setup's models' (``zoo_state_dict``'s weights) spatial step in
+    f64 with dropout, its loss and state digest, and on rank 0 the
+    one-process step's loss and ``state_gap`` to it; for the models in
+    ``f32``, the f32 step without dropout, BN at its running statistics
+    (rank 0's state in full). Rank 0 compares the f64 states itself, so
+    no rank writes an f64 state to disk."""
+    setup = _load(setup_path)
+    out = {"prims": spatial_primitives(mesh, setup["prims"])}
+    seed = setup["dropout_seed"]
+    for name, model in setup["models"].items():
+        model = dict(model, state_dict=zoo_state_dict(model))
+        loss, state = spatial_train_step(mesh, model, dropout_seed=seed)
+        got = {"f64": (loss, state_digest(state))}
+        if mesh.main:
+            ref_loss, ref = spatial_train_step(None, model, dropout_seed=seed)
+            got["one_process"] = (ref_loss, state_gap(state, ref))
+        if name in setup["f32"]:
+            loss, state = spatial_train_step(mesh, model, torch.float32, frozen_bn=True)
+            got["f32"] = (loss, state_digest(state), state if mesh.main else None)
+        out[name] = got
     _save(mesh, out_dir, out)
 
 

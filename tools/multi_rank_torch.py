@@ -14,9 +14,10 @@ world 1; with four cards or more then ``dryrun_multichip(4)`` and a
 ``multi_rank_drivers_phase``, the two-headed step, the accuracy
 predictor's driver and picks, the replays and the SEM trainer on two gloo
 ranks sharing card 0. ``spatial``: ``spatial_phase``, the height-sharded
-DeepLab-MobileNetV2 step at 1024x2048 on a (1x2) mesh (gloo ranks
-sharing card 0, and one rank per card over NCCL where two cards are
-visible) and ``dryrun_multichip`` as (1x2) and (2x1), and as (2x2) over
+step of DeepLab-MobileNetV2 and DeepLab-ResNet-101 os16, ENet and
+FastSCNN at 1024x2048 and the SEM UNet at 768x1024 on a (1x2) mesh
+(gloo ranks sharing card 0, and one rank per card over NCCL where two
+cards are visible) and ``dryrun_multichip`` as (1x2) and (2x1), and as (2x2) over
 NCCL where four cards are. Needs CUDA; imports no JAX.
 """
 
