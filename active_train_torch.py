@@ -52,8 +52,7 @@ def main(argv=None, device=None, dataset_root=None, runs_root=None,
     from deep_active_semantic_segmentation_torch.parallel.mesh import launch
 
     cfg = parse_cli(argv, description="PyTorch DeeplabV3Plus active training")
-    if cfg.batch_size is not None and cfg.num_devices:
-        check_args(cfg, cfg.num_devices)   # before any rank starts
+    check_args(cfg, cfg.num_devices or 1)   # before any rank starts
     return launch(_run, (cfg, dataset_root, runs_root),
                   num_devices=cfg.num_devices, device=device, backend=backend)
 

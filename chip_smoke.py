@@ -77,7 +77,12 @@
    `variance_representative` (B1 only in its MC stage), the picks equal
    to a re-run on best.ckpt; k-center greedy ((2975, 2736), 150 picks)
    and max-representative (47,600 x 1,898 x 304, 949 picks) on seeded
-   features, timed 3 times with peak memory, picks equal to the CPU's;
+   features, timed 3 times with peak memory, picks equal to the CPU's
+   (the process's float32 precision state printed first; a k-center
+   split dumped to kcenter_mismatch.npz beside the --out file, or in the
+   repo's root, with the first pick where the card, the CPU, the CPU
+   again and the CPU at full f32 part from an f64 greedy, before the
+   near-tie check);
    an `accuracy_labels` query (no launch, counts equal a recount, the
    pick their top 5) and an `accuracy_eval` consumer round replaying the
    AL round's selections.txt.
@@ -211,7 +216,16 @@
    the plain one), and the data-parallel f64 step on the (2x1) mesh of
    the same ranks at 512x1024 (within 1e-10). No B1 or B2 launch in its
    steps.
-17. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
+17. Slice 16, the trace phase: tools/trace_step_torch.py's per-op
+   profile (torch.profiler through utils/profiling) of each of its modes
+   at full width, 2 warm-up and 3 profiled steps each: the DeepLab-v3+/
+   MobileNetV2 and two-headed train steps at 513², the ENet and FastSCNN
+   steps and ENet's MC-dropout scoring at 512², the 3-channel 19-class
+   UNet's step at 512², all batch 8, bf16. Each mode's device and wall
+   ms per step and top 5 ops; B2's kernel named 20 times per scoring
+   step (its counter agreeing), neither kernel in a train step; each
+   device total positive and within the wall time.
+18. Prints the phases' seconds, one {"kernels": [...]} line, then, as the
    last line, {"ok": true, "device": {...}}. Any failed check raises:
    exit code 1.
 
@@ -1586,6 +1600,10 @@ MAXREP_M, MAXREP_K, MAXREP_D, MAXREP_PICKS = 2975 * 16, 2 * 949, 304, 949
 # swap between the card's and the CPU's f32 sums
 MAXREP_CHECKED, GREEDY_SCORE_RTOL = 64, 1e-5
 GREEDY_RUNS = 3
+# the file a k-center split between the card and the CPU is dumped to
+# (features, seed mask, both pick lists) before the near-tie check reads
+# it: beside the --out file, or in the repo's root without one
+KCENTER_DUMP = "kcenter_mismatch.npz"
 
 
 def noise_query_phase(torch, seed: int, arch: str, store, paths, modes):
@@ -1748,20 +1766,114 @@ def representative_rounds_phase(torch, seed: int, root: Path, paths):
     return out
 
 
-def greedy_phase(torch, seed: int):
+def precision_state(torch) -> dict:
+    """The process's float32 precision settings as this torch reports
+    them: the legacy matmul precision, the per-backend ones (torch >=
+    2.9), CPU autocast and its dtype, the intra-op threads and the CPU
+    capability torch dispatches to."""
+    out = {}
+    try:
+        out["float32_matmul_precision"] = torch.get_float32_matmul_precision()
+    except RuntimeError as e:   # legacy and per-backend settings disagree
+        out["float32_matmul_precision"] = f"unreadable: {str(e)[:160]}"
+    for name in ("fp32_precision", "mkldnn.matmul.fp32_precision",
+                 "mkldnn.conv.fp32_precision", "cuda.matmul.fp32_precision"):
+        obj = torch.backends
+        for part in name.split("."):
+            obj = getattr(obj, part, None)
+        if obj is not None:
+            out[f"backends.{name}"] = obj
+    out["cpu_autocast"] = torch.is_autocast_enabled("cpu")
+    out["cpu_autocast_dtype"] = str(torch.get_autocast_dtype("cpu"))
+    out["threads"] = torch.get_num_threads()
+    out["cpu_capability"] = next(
+        (line.split(":", 1)[1].strip() for line in torch.__config__.show().splitlines()
+         if "CPU capability" in line), None)
+    return out
+
+
+@contextlib.contextmanager
+def full_f32(torch):
+    """Every float32 precision setting forced to full float32 for the
+    ``with`` block (the generic and oneDNN per-backend settings at IEEE,
+    cuBLAS TF32 off, CPU autocast off), each put back after it."""
+    b = torch.backends
+    owners = [o for o in (b, getattr(b.mkldnn, "matmul", None),
+                          getattr(b.mkldnn, "conv", None))
+              if hasattr(o, "fp32_precision")]
+    saved = [o.fp32_precision for o in owners], b.cuda.matmul.allow_tf32
+    for o in owners:
+        o.fp32_precision = "ieee"
+    b.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast("cpu", enabled=False):
+            yield
+    finally:
+        for o, value in zip(owners, saved[0]):
+            o.fp32_precision = value
+        b.cuda.matmul.allow_tf32 = saved[1]
+
+
+def kcenter_f64(torch, x, mask, picks: int) -> list:
+    """The k-center greedy in f64 (exact distances, ``torch.cdist``) on the
+    CPU: the reference both f32 runs are read against."""
+    x = x.double()
+    min_d = torch.cdist(x, x[mask]).min(dim=1).values
+    min_d[mask] = 0
+    out = []
+    for _ in range(picks):
+        out.append(int(min_d.argmax()))
+        min_d = torch.minimum(min_d, torch.cdist(x, x[out[-1]:out[-1] + 1])[:, 0])
+    return out
+
+
+def kcenter_split(torch, distance, feats, mask, dev, cpu, dump: Path) -> dict:
+    """What a k-center split between the card and the CPU shows: the
+    features, seed mask and both pick lists saved to ``dump``, the
+    process's precision state, and the first pick where each of the card,
+    the CPU, the CPU once more on the same tensors and the CPU with every
+    precision setting forced to full f32 (``full_f32``) parts from the f64
+    greedy."""
+    x, m = feats.cpu(), mask.cpu()
+    dump.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(dump, feats=x.numpy(), mask=m.numpy(), card=np.asarray(dev),
+             cpu=np.asarray(cpu))
+    state = precision_state(torch)
+    again = distance.kcenter_greedy(x, m, KCENTER_PICKS).tolist()
+    with full_f32(torch):
+        forced = distance.kcenter_greedy(x, m, KCENTER_PICKS).tolist()
+    ref = kcenter_f64(torch, x, m, KCENTER_PICKS)
+
+    def first(picks):
+        return next((i for i, (a, b) in enumerate(zip(picks, ref)) if a != b), None)
+
+    parts = {"card": first(dev), "cpu": first(cpu), "cpu_again": first(again),
+             "cpu_full_f32": first(forced)}
+    print(f"k-center split dumped to {dump}; precision state "
+          f"{json.dumps(state)}; first pick apart from the f64 greedy: "
+          f"{json.dumps(parts)}", flush=True)
+    return {"dump": str(dump), "precision_state": state,
+            "first_apart_from_f64": parts}
+
+
+def greedy_phase(torch, seed: int, dump_dir: Path = REPO):
     """k-center greedy and max-representative alone at the canonical sizes
     on seeded features (clustered and non-negative, as decoder features
     are), TF32 off as the selectors run them: ms (median of GREEDY_RUNS,
     with the runs), peak memory above the start, and the picks against the
     same function on the CPU: all of them for k-center, the first
-    MAXREP_CHECKED for max-subset. A mismatch fails unless the two
-    candidates' scores at that step (recomputed in f64) are within
-    GREEDY_SCORE_RTOL of each other; then that case is printed and the
-    comparison stops there (the greedy paths part)."""
+    MAXREP_CHECKED for max-subset. The process's precision state is
+    printed first. A k-center split is dumped to KCENTER_DUMP in
+    ``dump_dir`` and read (``kcenter_split``) before the check. A mismatch fails unless the two candidates' scores
+    at that step (recomputed in f64) are within GREEDY_SCORE_RTOL of each
+    other; then that case is printed and the comparison stops there (the
+    greedy paths part)."""
     from deep_active_semantic_segmentation_torch.ops import distance
     from deep_active_semantic_segmentation_torch.selection.kernels import (
         _deterministic_precision)
 
+    state = precision_state(torch)
+    print(f"greedy: precision state {json.dumps(state)}", flush=True)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
 
     def features(n, d, clusters=64):
@@ -1796,8 +1908,10 @@ def greedy_phase(torch, seed: int):
         cpu = distance.kcenter_greedy(feats.cpu(), mask.cpu(), KCENTER_PICKS).tolist()
         cpu_s = time.perf_counter() - t0
         i = first_mismatch(dev, cpu)
-        near = None
+        near = split = None
         if i is not None:
+            split = kcenter_split(torch, distance, feats, mask, dev, cpu,
+                                  dump_dir / KCENTER_DUMP)
             x = feats.cpu().double()
             centers = x[mask.cpu() | torch.isin(torch.arange(KCENTER_N),
                                                 torch.tensor(dev[:i], dtype=torch.long))]
@@ -1815,7 +1929,7 @@ def greedy_phase(torch, seed: int):
               flush=True)
         out["kcenter"] = {"shape": [KCENTER_N, KCENTER_D], "ms_runs": runs,
                           "ms": float(np.median(runs)), "peak_bytes": peak,
-                          "cpu_s": cpu_s, "near_tie": near}
+                          "cpu_s": cpu_s, "near_tie": near, "split": split}
         del feats, mask
 
         pool = features(MAXREP_M, MAXREP_D)
@@ -1850,6 +1964,7 @@ def greedy_phase(torch, seed: int):
                                      "ms_runs": runs, "ms": float(np.median(runs)),
                                      "peak_bytes": peak, "cpu_s": cpu_s,
                                      "near_tie": near}
+    out["precision_state"] = state
     return out
 
 
@@ -4860,6 +4975,74 @@ def remat_phase(torch, seed: int, root: Path, plain_round: dict) -> dict:
     return out
 
 
+# ------------------------------------------- slice 16: the per-op step tracer
+
+# tools/trace_step_torch.py's modes at full width: (mode, side, batch); the
+# JAX tool's 513 and batch 8, 512 for the models whose pools need it
+# (FastSCNN raises at 513) and for ENet's MC scoring (its main path's crop)
+TRACE_MODES = [("deeplab", 513, 8), ("dual", 513, 8), ("enet", 512, 8),
+               ("enet_mc", 512, 8), ("fastscnn", 512, 8), ("unet", 512, 8)]
+TRACE_WARMUP, TRACE_STEPS = 2, 3
+# the kernels' symbols in a profile
+KERNEL_SYMBOLS = {"upsample4_argmax": "upsample4_argmax_kernel",
+                  "tconv2x_argmax_parity_major": "tconv2x_argmax_parity_major_kernel"}
+
+
+def trace_phase(torch) -> dict:
+    """``tools/trace_step_torch.trace`` of each TRACE_MODES mode on the
+    card (TRACE_WARMUP steps, then TRACE_STEPS profiled), the launch counts
+    set to 0 just before each mode and read just after: in ``enet_mc``
+    B2's kernel named by its symbol in the table with MC_STEPS launches
+    per step, as its counter says (MC_STEPS per step, warm-up included),
+    no B1; in every train step's table neither kernel, and no launch;
+    each table's device total positive and at most the step's wall time
+    (CUDA events around the profiled steps). Prints each mode's device
+    and wall ms per step and its top 5 ops."""
+    from deep_active_semantic_segmentation_torch import constants
+    from tools import trace_step_torch as tool
+
+    out = {}
+    for mode, side, batch in TRACE_MODES:
+        t0 = time.perf_counter()
+        reset_counts()
+        table = tool.trace(mode, side, batch, DEVICE, steps=TRACE_STEPS,
+                           warmup=TRACE_WARMUP, top=None)
+        counts = read_counts()
+        table["s"] = time.perf_counter() - t0
+        table["counts"] = counts
+        print(f"trace {mode} {side}^2 bs{batch}: device {table['total_ms']:.3f} ms/step "
+              f"over {table['names']} op names, wall {table['wall_ms']:.3f} ms/step "
+              f"(device share {table['total_ms'] / table['wall_ms']:.1%}); launches "
+              f"{json.dumps(counts)}; {table['s']:.1f} s", flush=True)
+        for op in table["ops"][:5]:
+            print(f"  {op['ms']:9.3f} ms/step x{op['launches']:<6g} {op['name'][:110]}",
+                  flush=True)
+        hand = {name: [op for op in table["ops"] if symbol in op["name"]]
+                for name, symbol in KERNEL_SYMBOLS.items()}
+        table["hand_written"] = {name: [{"ms": op["ms"], "launches": op["launches"]}
+                                        for op in ops] for name, ops in hand.items()}
+        check(table["total_ms"] > 0 and table["total_ms"] <= table["wall_ms"],
+              f"trace {mode}: device time {table['total_ms']} ms/step within the "
+              f"wall {table['wall_ms']} ms/step")
+        if mode == "enet_mc":
+            b2 = hand["tconv2x_argmax_parity_major"]
+            check(len(b2) == 1 and b2[0]["launches"] == constants.MC_STEPS,
+                  f"trace enet_mc: B2's kernel {constants.MC_STEPS} times per step in "
+                  f"the table: {table['hand_written']}")
+            check(counts == {"upsample4_argmax": 0, "tconv2x_argmax_parity_major":
+                             constants.MC_STEPS * (TRACE_WARMUP + TRACE_STEPS)},
+                  f"trace enet_mc: B2 launched {constants.MC_STEPS} times per "
+                  f"step: {counts}")
+            print(f"  B2 {b2[0]['ms']:.4f} ms/step of {table['total_ms']:.3f} "
+                  f"({b2[0]['ms'] / table['total_ms']:.2%})", flush=True)
+        else:
+            check(not any(hand.values()) and not any(counts.values()),
+                  f"trace {mode}: no B1 or B2 kernel in a train step: "
+                  f"{table['hand_written']}, {counts}")
+        out[mode] = table
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4955,7 +5138,8 @@ def main(argv=None) -> int:
         representative = representative_rounds_phase(torch, args.seed, tmp, paths)
         phase_s["coreset_and_representative_rounds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        greedy = greedy_phase(torch, args.seed)
+        greedy = greedy_phase(torch, args.seed,
+                              Path(args.out).parent if args.out else REPO)
         phase_s["canonical_greedy"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         oracle = oracle_phase(torch, args.seed, tmp, paths)
@@ -5074,6 +5258,14 @@ def main(argv=None) -> int:
         phase_s["remat"] = time.perf_counter() - t0
         for name, model in remat["models"].items():
             phase_s[f"remat_{name}"] = model["s"]
+        # slice 16: the per-op step tracer; its ENet MC scoring launches B2
+        # 20 times per step, its train steps neither kernel (each mode's
+        # counts set to 0 just before it and read just after)
+        t0 = time.perf_counter()
+        traces = trace_phase(torch)
+        phase_s["trace"] = time.perf_counter() - t0
+        for mode, table in traces.items():
+            phase_s[f"trace_{mode}"] = table["s"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds:", json.dumps({k: round(v, 3) for k, v in phase_s.items()}),
@@ -5122,6 +5314,8 @@ def main(argv=None) -> int:
             "this process": drivers["counts"][row["name"]],
             "worker ranks": [c[row["name"]] for c in drivers["rank_counts"]]}
         row["remat_round_launches"] = remat["round"]["counts"][row["name"]]
+        row["trace_launches"] = {mode: t["counts"][row["name"]]
+                                 for mode, t in traces.items()}
         if row["name"] == "upsample4_argmax":   # the dry runs score with DeepLab
             row["spatial_dryrun_launches_per_rank"] = {
                 d["line"].split(" loss=")[0].split(" ", 1)[1]: d["launches_per_rank"]
@@ -5140,7 +5334,8 @@ def main(argv=None) -> int:
              "ceal": ceal, "noise": noise, "representative": representative,
              "greedy": greedy, "oracle": oracle, "accuracy": accuracy,
              "zoo": zoo, "replay": replay, "multi_rank": multi_rank,
-             "multi_rank_drivers": drivers, "spatial": spatial, "remat": remat},
+             "multi_rank_drivers": drivers, "spatial": spatial, "remat": remat,
+             "trace": traces},
             indent=1, default=str))
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in row.items() if k != "checks"}

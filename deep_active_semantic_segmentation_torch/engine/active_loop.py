@@ -52,10 +52,20 @@ _REGION_CAPABLE = ("random", "variance", "variance_representative",
 
 def check_args(args, world: int = 1) -> None:
     """Refuse, before any training, what the loop cannot run on ``world``
-    ranks: ``_check_mode``'s combinations, and a global batch that the
-    ranks do not divide."""
+    ranks: ``_check_mode``'s combinations, ``variance_representative`` on
+    region datasets at the letterbox, and a global batch that the ranks do
+    not divide (an unset batch, which ``finalize`` chooses, is not
+    checked)."""
     _check_mode(args.active_selection_mode, args.dataset)
-    if args.batch_size % world:
+    if (args.active_selection_mode == "variance_representative"
+            and args.dataset.endswith("_region") and args.crop_size <= 0):
+        raise NotImplementedError(
+            f"variance_representative on region datasets needs --crop-size > 0, "
+            f"not {args.crop_size}: its max-subset stage maps regions onto the "
+            "feature map at region_size * map size / crop_size (the JAX "
+            "selector's formula), which is negative at the letterbox, and the "
+            "JAX loop fails at its first selection there (ROADMAP C)")
+    if args.batch_size is not None and args.batch_size % world:
         raise ValueError(f"--batch-size {args.batch_size} does not divide over "
                          f"{world} ranks: the global batch must be a multiple "
                          "of --num-devices")

@@ -90,22 +90,45 @@ def _mc_precision():
         torch.backends.cudnn.allow_tf32 = saved
 
 
+# oneDNN's per-operation float32 precisions (torch >= 2.9); "none" defers to
+# torch.backends.fp32_precision, which a caller may have set to bf16 or tf32
+_ONEDNN_FP32 = ("matmul", "conv")
+
+
 @contextlib.contextmanager
 def _deterministic_precision():
-    """cuDNN and matmul TF32 OFF for the deterministic scorers (CEAL): one
-    forward per image whose softmax ranks near-equal images, which TF32's
-    10 mantissa bits reorder. The JAX package runs them at 'high' matmul
-    precision (its selection/base.py:30,53). The flags are restored on
-    exit."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Full float32 for the deterministic scorers (CEAL, the feature taps)
+    and the greedy selections: cuDNN and cuBLAS TF32 OFF, oneDNN's CPU
+    matmuls and convs at IEEE float32, and autocast off on the CPU and the
+    card. One forward per image whose softmax ranks near-equal images, and
+    greedy picks whose distances part by 1e-5, both of which a reduced
+    precision reorders: a bf16 CPU matmul is off by ~4e-3 relative. The JAX
+    package runs them at 'high' matmul precision (its selection/base.py
+    :30,53). Every setting is restored on exit, oneDNN's before the TF32
+    flags (torch refuses to read a legacy matmul precision that its
+    per-backend settings contradict), cuBLAS's per-backend value last."""
+    b = torch.backends
+    onednn = [getattr(b.mkldnn, op) for op in _ONEDNN_FP32
+              if hasattr(getattr(b.mkldnn, op, None), "fp32_precision")]
+    cublas = [b.cuda.matmul] if hasattr(b.cuda.matmul, "fp32_precision") else []
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+             [m.fp32_precision for m in onednn + cublas])
+    b.cudnn.allow_tf32 = False
+    b.cuda.matmul.allow_tf32 = False
+    for m in onednn:
+        m.fp32_precision = "ieee"
+    devices = ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
     try:
-        yield
+        with contextlib.ExitStack() as stack:
+            for device in devices:
+                stack.enter_context(torch.autocast(device, enabled=False))
+            yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        for m, value in zip(onednn, saved[2]):
+            m.fp32_precision = value
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = saved[:2]
+        for m, value in zip(cublas, saved[2][len(onednn):]):
+            m.fp32_precision = value   # "none" where it was unset
 
 
 def _step_votes(model, out: torch.Tensor, fused: bool, H: int, W: int):

@@ -12,6 +12,7 @@ on the same f32 features they are the same arithmetic, ties included
 (first occurrence, chosen candidates masked with inf), and the selectors'
 features differ by far less than any gap between two candidates' scores."""
 
+import contextlib
 import os
 
 import jax.numpy as jnp
@@ -138,6 +139,114 @@ def test_max_representative_pick_order_equals_jax(duplicates):
         np.asarray(jx_distance.pairwise_euclidean(jnp.asarray(pool),
                                                   jnp.asarray(cand))),
         rtol=0, atol=1e-5)
+
+
+# ------------------------------------------- the process's float32 precision
+
+def _clustered(rng, n, d, clusters=16):
+    """Non-negative clustered rows, as decoder features are (the canonical
+    greedy's recipe in chip_smoke.py)."""
+    centers = rng.rand(clusters, d) * 2
+    rows = centers[rng.randint(0, clusters, n)] + rng.randn(n, d)
+    return np.maximum(rows, 0).astype(np.float32)
+
+
+def _kcenter_f64(x, mask, k):
+    x = x.astype(np.float64)
+    sq = (x * x).sum(1)
+    min_d = np.sqrt(np.maximum(sq[:, None] + sq[None, mask] - 2 * x @ x[mask].T,
+                               0)).min(1)
+    min_d[mask] = 0
+    picks = []
+    for _ in range(k):
+        picks.append(int(min_d.argmax()))
+        min_d = np.minimum(min_d, np.sqrt(np.maximum(
+            sq + sq[picks[-1]] - 2 * x @ x[picks[-1]], 0)))
+    return picks
+
+
+def _max_representative_f64(pool, cand, k):
+    pool, cand = pool.astype(np.float64), cand.astype(np.float64)
+    d = np.sqrt(np.maximum((pool * pool).sum(1)[:, None]
+                           + (cand * cand).sum(1)[None] - 2 * pool @ cand.T, 0))
+    min_d, chosen, picks = np.full(len(pool), np.inf), np.zeros(len(cand), bool), []
+    for _ in range(k):
+        scores = np.minimum(min_d[:, None], d).sum(0)
+        scores[chosen] = np.inf
+        picks.append(int(scores.argmin()))
+        chosen[picks[-1]] = True
+        min_d = np.minimum(min_d, d[:, picks[-1]])
+    return picks
+
+
+def _precision_settings():
+    b = torch.backends
+    return (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cuda.matmul.fp32_precision,
+            b.mkldnn.matmul.fp32_precision, b.mkldnn.conv.fp32_precision,
+            b.fp32_precision, torch.is_autocast_enabled("cpu"))
+
+
+@contextlib.contextmanager
+def _reduced_precision(state):
+    """The process left at a reduced float32 precision, as an earlier
+    caller may leave it: CPU autocast to bf16 (thread-local), oneDNN's
+    float32 matmuls in bf16, or the legacy 'medium' matmul precision
+    (oneDNN bf16, cuBLAS TF32). Every setting is put back afterwards."""
+    b = torch.backends
+    saved = _precision_settings()
+    try:
+        if state == "cpu_autocast_bf16":
+            with torch.autocast("cpu", dtype=torch.bfloat16):
+                yield
+            return
+        if state == "onednn_matmul_bf16":
+            b.mkldnn.matmul.fp32_precision = "bf16"
+        else:
+            torch.set_float32_matmul_precision("medium")
+        yield
+    finally:
+        b.fp32_precision = saved[5]
+        b.mkldnn.matmul.fp32_precision, b.mkldnn.conv.fp32_precision = saved[3:5]
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = saved[:2]
+        b.cuda.matmul.fp32_precision = saved[2]
+        assert _precision_settings() == saved
+
+
+@pytest.mark.parametrize("greedy", ["kcenter", "max_representative"])
+@pytest.mark.parametrize("state", ["cpu_autocast_bf16", "onednn_matmul_bf16",
+                                   "float32_matmul_precision_medium"])
+def test_greedy_picks_stay_the_f64_greedys_under_a_reduced_precision(state, greedy):
+    """The selectors run both greedy selections under
+    ``kernels._deterministic_precision``, which pins full float32 for the
+    CPU too: oneDNN's matmuls and convs at IEEE float32 and autocast off.
+    Whatever precision an earlier caller left the process at, the picks
+    are the f64 greedy's, and the scope puts every setting back. Under
+    CPU autocast the same call outside the scope parts from the f64
+    greedy within a few picks (a bf16 matmul, ~4e-3 relative; an f32 one
+    is ~2e-7), the split ROADMAP C1 records on the card's host: held here
+    as the cause the scope repairs."""
+    rng = np.random.RandomState(0)
+    if greedy == "kcenter":
+        x = _clustered(rng, 400, 2736)
+        mask = np.zeros(400, bool)
+        mask[rng.permutation(400)[:20]] = True
+        want = _kcenter_f64(x, mask, 40)
+        args = (torch.from_numpy(x), torch.from_numpy(mask), 40)
+    else:
+        pool, cand = _clustered(rng, 1500, 304), _clustered(rng, 120, 304)
+        want = _max_representative_f64(pool, cand, 30)
+        args = (torch.from_numpy(pool), torch.from_numpy(cand), 30)
+    fn = getattr(pt_distance, f"{greedy}_greedy" if greedy == "kcenter" else greedy)
+    assert fn(*args).tolist() == want                    # full f32
+    with _reduced_precision(state):
+        before = _precision_settings()
+        unpinned = fn(*args).tolist()
+        with pt_kernels._deterministic_precision():
+            pinned = fn(*args).tolist()
+        assert _precision_settings() == before
+    assert pinned == want
+    if state == "cpu_autocast_bf16":
+        assert unpinned != want
 
 
 @pytest.mark.parametrize("arch", ["deeplab", "enet"])

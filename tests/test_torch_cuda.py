@@ -250,6 +250,20 @@ def test_noise_sweep_through_the_kernel_equals_its_plain_rescore(
         assert (fused == rescored).float().mean().item() >= 0.995
 
 
+def _apart_from_f64(feats, seed_mask, picks: dict) -> dict:
+    """The first pick where each list parts from the k-center greedy in
+    f64 (a failed comparison's message: which side moved)."""
+    x = feats.double()
+    min_d = torch.cdist(x, x[seed_mask]).min(dim=1).values
+    min_d[seed_mask] = 0
+    ref = []
+    for _ in range(len(next(iter(picks.values())))):
+        ref.append(int(min_d.argmax()))
+        min_d = torch.minimum(min_d, torch.cdist(x, x[ref[-1]:ref[-1] + 1])[:, 0])
+    return {side: next((i for i, (a, b) in enumerate(zip(p, ref)) if a != b), None)
+            for side, p in picks.items()}
+
+
 @pytest.mark.cuda
 def test_greedy_selection_on_the_card_equals_the_cpu(cuda_device):
     """k-center greedy and max-representative on the card pick what the
@@ -268,7 +282,9 @@ def test_greedy_selection_on_the_card_equals_the_cpu(cuda_device):
     with _deterministic_precision():
         cpu = distance.kcenter_greedy(feats, seed_mask, 60)
         card = distance.kcenter_greedy(feats.to(cuda_device), seed_mask, 60)
-        assert card.device.type == "cuda" and card.cpu().tolist() == cpu.tolist()
+        assert card.device.type == "cuda"
+        assert card.cpu().tolist() == cpu.tolist(), _apart_from_f64(
+            feats, seed_mask, {"card": card.cpu().tolist(), "cpu": cpu.tolist()})
         cand = feats[300:500]
         cpu = distance.max_representative(feats, cand, 40)
         card = distance.max_representative(feats.to(cuda_device),
@@ -797,3 +813,22 @@ def test_remat_step_on_the_card_equals_the_plain_step(cuda_device, arch):
         else:
             assert torch.equal(got[k], v), k
     assert torch.equal(got_gen, want_gen)
+
+
+@pytest.mark.cuda
+def test_the_step_tracer_counts_b2_launches_per_enet_mc_step(cuda_device):
+    """``tools/trace_step_torch.py``'s ``enet_mc`` at toy size on the card:
+    its table names B2's kernel 20 times (MC_STEPS) per profiled scoring
+    step, the launch counter agrees (warm-up steps included), and no B1
+    kernel runs."""
+    from deep_active_semantic_segmentation_torch import constants
+    from tools import trace_step_torch as tool
+
+    before = (ua.upsample4_argmax.launches, tv.tconv2x_argmax_parity_major.launches)
+    table = tool.trace("enet_mc", 64, 2, cuda_device, steps=2, warmup=1, top=None)
+    b2 = [op for op in table["ops"] if "tconv2x_argmax_parity_major_kernel" in op["name"]]
+    assert len(b2) == 1 and b2[0]["launches"] == constants.MC_STEPS
+    assert not any("upsample4_argmax_kernel" in op["name"] for op in table["ops"])
+    assert ua.upsample4_argmax.launches == before[0]
+    assert tv.tconv2x_argmax_parity_major.launches == before[1] + 3 * constants.MC_STEPS
+    assert 0 < table["total_ms"] <= table["wall_ms"]

@@ -21,7 +21,7 @@ from deep_active_semantic_segmentation_torch import config as pt_config
 from deep_active_semantic_segmentation_torch.data import pools as pt_pools
 from deep_active_semantic_segmentation_torch.data.store import DirectoryStore
 from deep_active_semantic_segmentation_torch.engine.active_loop import (
-    run_active_loop as pt_run_active_loop)
+    check_args as pt_check_args, run_active_loop as pt_run_active_loop)
 from deep_active_semantic_segmentation_torch.models.factory import (
     build_model, param_groups)
 from deep_active_semantic_segmentation_torch.parallel.optim import (
@@ -333,6 +333,42 @@ def test_random_on_regions_fails_in_jax_and_is_rejected_before_training(
         pt_run_active_loop(cfg, dataset_root=dataset_root,
                            runs_root=str(tmp_path), device="cpu")
     assert not os.listdir(tmp_path)           # no run directory, no training
+
+
+def test_representative_regions_at_the_letterbox_fail_in_jax_and_are_rejected_before_training(
+        tmp_path):
+    """`variance_representative` on a region dataset at `--crop-size -1`
+    (the letterbox): the JAX max-subset selector maps the grid tiles and
+    the regions onto the feature map at region_size * map size /
+    crop_size, which is negative there, so it has no tile to compare with
+    and raises at the loop's first selection, after a whole training
+    round. The port's driver refuses the combination before any rank
+    starts, naming the rule."""
+    from deep_active_semantic_segmentation_tpu.selection import (
+        get_max_subset_active_selector as jx_max_subset)
+    from deep_active_semantic_segmentation_tpu.selection.base import (
+        ModelBundle as JxModelBundle)
+    from torch_port_helpers import jax_deeplab
+
+    root = str(tmp_path / "pool")
+    keys = write_pool(DirectoryStore(root, readonly=False), 4, seed=6)
+    regions = {keys[0]: [(0, 0, 9, 9)], keys[1]: [(3, 12, 9, 9)]}
+    selector = jx_max_subset(JxDirectoryStore(root), -1, 2)
+    with pytest.raises(ValueError):
+        selector.get_representative_regions(JxModelBundle(*jax_deeplab(seed=5)), keys,
+                                            regions, 9)
+    runs = tmp_path / "runs"
+    runs.mkdir()
+    argv = CANONICAL + TOY + ["--checkname", "vr", "--dataset", "active_pascal_region",
+                              "--crop-size", "-1", "--active-selection-mode",
+                              "variance_representative"]
+    with pytest.raises(NotImplementedError, match="needs --crop-size > 0, not -1"):
+        active_train_torch.main(argv, device="cpu", dataset_root=str(tmp_path / "none"),
+                                runs_root=str(runs))
+    assert not os.listdir(runs)               # no run directory, no training
+    cfg = pt_config.parse_cli(argv[:-2] + ["--active-selection-mode", "variance"])
+    assert cfg.crop_size == -1
+    pt_check_args(cfg.finalize())             # variance at the letterbox runs
 
 
 @pytest.mark.parametrize("mode", ["accuracy_eval", "accuracy_labels"])
